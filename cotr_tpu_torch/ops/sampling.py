@@ -1,0 +1,138 @@
+"""Bilinear sampling and crop-and-resize (counterpart of
+cotr_tpu/ops/sampling.py), images in HWC layout.
+
+* :func:`grid_sample`: torch semantics, ``align_corners=False``, zero
+  padding; a normalized coordinate g in [-1, 1] maps to pixel
+  ((g + 1) * size - 1) / 2.
+* :func:`resize_bilinear`: the JAX package's ``jax.image.resize(method=
+  "linear", antialias=True)``: a center-aligned triangle filter, widened on
+  downscale.
+* :func:`crop_and_resize_matmul`: PIL-exact anti-aliased crop-and-resize as
+  two batched matrix products with per-box triangle-filter matrices
+  (:func:`pil_axis_weights`).
+* :func:`resize_pil`: PIL's BILINEAR resize of a whole image without PIL,
+  for the field resizes where the JAX package calls PIL on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """image (H, W, C) with grid (..., 2), or image (B, H, W, C) with grid
+    (B, ..., 2); grid holds normalized (x, y). Returns (..., C) or
+    (B, ..., C)."""
+    batched = image.dim() == 4
+    if not batched:
+        image, grid = image[None], grid[None]
+    b = image.shape[0]
+    lead = grid.shape[1:-1]
+    g = grid.reshape(b, -1, 1, 2).to(image.dtype)
+    out = F.grid_sample(image.permute(0, 3, 1, 2), g, mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    out = out[..., 0].permute(0, 2, 1).reshape(b, *lead, image.shape[-1])
+    return out if batched else out[0]
+
+
+def resize_bilinear(image: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(H, W, C) or (N, H, W, C) float image -> (out_h, out_w) with an
+    anti-aliased triangle filter (matches jax.image.resize 'linear' with
+    antialias=True)."""
+    batched = image.dim() == 4
+    x = (image if batched else image[None]).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                        align_corners=False, antialias=True)
+    out = out.permute(0, 2, 3, 1)
+    return out if batched else out[0]
+
+
+def pil_axis_weights(starts: torch.Tensor, sizes: torch.Tensor,
+                     in_extent: int, out_size: int) -> torch.Tensor:
+    """Per-box separable PIL-BILINEAR interpolation matrices (G, out, in).
+
+    PIL's triangle filter on a crop [start, start+size) resized to
+    out_size: filter scale max(size/out, 1) (anti-aliasing on downscale),
+    support clipped to the crop, weights renormalized over it. starts and
+    sizes are integer-valued floats."""
+    dev, dt = starts.device, starts.dtype
+    scale = sizes / out_size  # (G,)
+    filt = torch.clamp(scale, min=1.0)
+    centers = (starts[:, None]
+               + (torch.arange(out_size, dtype=dt, device=dev)[None] + 0.5)
+               * scale[:, None])
+    ys = torch.arange(in_extent, dtype=dt, device=dev)  # centers at y + 0.5
+    d = torch.abs(ys[None, None, :] + 0.5 - centers[..., None]) \
+        / filt[:, None, None]
+    w = torch.clamp(1.0 - d, min=0.0)
+    inbox = ((ys[None, :] >= starts[:, None])
+             & (ys[None, :] <= starts[:, None] + sizes[:, None] - 1))
+    w = w * inbox[:, None, :]
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-8)
+
+
+def crop_and_resize_matmul(image: torch.Tensor, boxes: torch.Tensor,
+                           out_size: int,
+                           compute_dtype=torch.float32) -> torch.Tensor:
+    """PIL-exact anti-aliased crop-and-resize as two matrix products:
+    out[g] = Wy[g] @ img @ Wx[g]^T per channel.
+
+    image (H, W, C); boxes (G, 4) integer-valued (x0, y0, w, h) float32.
+    Returns (G, out_size, out_size, C) float32."""
+    h, w = image.shape[0], image.shape[1]
+    wy = pil_axis_weights(boxes[:, 1], boxes[:, 3], h, out_size)  # (G,o,H)
+    wx = pil_axis_weights(boxes[:, 0], boxes[:, 2], w, out_size)  # (G,o,W)
+    img = image.to(compute_dtype)
+    tmp = torch.einsum("giy,yxc->gixc", wy.to(compute_dtype), img)
+    out = torch.einsum("gjx,gixc->gijc", wx.to(compute_dtype), tmp)
+    return out.float()
+
+
+def _pil_axis_weights_full(in_size: int, out_size: int,
+                           device) -> torch.Tensor:
+    """(out, in) float64 PIL-BILINEAR weights over a whole axis."""
+    scale = in_size / out_size
+    filt = max(scale, 1.0)
+    centers = (np.arange(out_size) + 0.5) * scale
+    d = np.abs(np.arange(in_size)[None, :] + 0.5 - centers[:, None]) / filt
+    w = np.maximum(0.0, 1.0 - d)
+    w = w / np.maximum(w.sum(-1, keepdims=True), 1e-8)
+    return torch.from_numpy(w).to(device)
+
+
+def resize_pil(img: torch.Tensor, shape_hw: Tuple[int, int]) -> torch.Tensor:
+    """PIL ``Image.resize(size, BILINEAR)`` of an (H, W) or (H, W, C) tensor
+    on its own device, per channel, without PIL.
+
+    PIL resamples horizontally, then vertically, each pass skipped when its
+    extent is unchanged, and stores the intermediate in the image's own
+    type: float32 for float fields ('F' mode), rounded 8-bit for uint8
+    (within one level of PIL's fixed-point arithmetic). Both passes are
+    float64 matrix products over (C, H, W) planes."""
+    out_h, out_w = shape_hw
+    in_h, in_w = img.shape[:2]
+    as_u8 = img.dtype == torch.uint8
+    x = img.double().reshape(in_h, in_w, -1).permute(2, 0, 1)
+
+    def settle(a):
+        if as_u8:
+            return torch.clamp(torch.round(a), 0, 255)
+        return a.float().double()
+
+    if out_w != in_w:
+        x = settle(x @ _pil_axis_weights_full(in_w, out_w, x.device).T)
+    if out_h != in_h:
+        x = settle(_pil_axis_weights_full(in_h, out_h, x.device) @ x)
+    x = x.permute(1, 2, 0).reshape((out_h, out_w) + tuple(img.shape[2:]))
+    return x.to(torch.uint8 if as_u8 else torch.float32)
+
+
+def resize_pil_host(img: np.ndarray, shape_hw: Tuple[int, int]) -> np.ndarray:
+    """:func:`resize_pil` of a host array."""
+    return resize_pil(torch.from_numpy(np.ascontiguousarray(img)),
+                      shape_hw).numpy()
