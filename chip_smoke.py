@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the attention kernel (csrc/attention.cu, nvcc, sm_90a) into build/;
-3. the kernel vs its plain version on the card at the main path's shapes,
+2. build the attention kernels (csrc/attention.cu, nvcc, sm_90a) into
+   build/;
+3. the kernels (the tile kernel and the row kernel behind one wrapper) vs
+   their plain version on the card at the main path's shapes,
    float32 and bfloat16, with times beside the plain version's, one
    ``F.scaled_dot_product_attention`` call's (a yardstick only; the port
    never calls it) and the card's bound;
@@ -40,13 +42,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "checkpoints", "flagship.npz")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W). The
+# float32 peak is the TF32 tensor-core rate, not the 67 TFLOP/s of the fp32
+# pipes: a float32 product split into TF32 pieces runs on the tensor cores,
+# so the fp32 pipes' rate is no lower limit on its time.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
 
-# kernel vs plain on the card. float32: both sides compute exact fp32
-# products, only the summation order differs. bfloat16: probabilities and
-# outputs round to bf16 (ulp 2**-8 near 1).
+# kernel vs plain on the card. float32: the row kernel computes exact fp32
+# products in another order of summation; the tile kernel splits each
+# operand into two TF32 pieces and sums three tensor-core products, which
+# drops a 2**-22 tail of every product. bfloat16: probabilities and outputs
+# round to bf16 (ulp 2**-8 near 1).
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # flagship forward, card vs CPU, float32 without TF32: conv and matmul
 # algorithms sum in other orders through 53 ResNet convs and 12 transformer
@@ -55,6 +62,7 @@ FORWARD_TOL = 1e-3
 
 # (B, Lq) of each attention on the main path (S = 512 keys, 8 heads of 32)
 SHAPES = [("encoder self-attention", 2, 512),
+          ("refinement encoder", 256, 512),
           ("dense decode chunk", 4, 8192),
           ("refinement decode", 256, 1),
           ("ragged query tile", 2, 600)]
@@ -208,14 +216,24 @@ def phase_kernel(attention) -> list:
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
             bound_ms, bound_by = attention_bound_ms(b, lq, s, h, hd, dtype)
+            variant = attention.choose_kernel(lq, s, td)
+            # the tile kernel at each height it is built for, to show which
+            # one the wrapper should pick
+            by_rows = {} if variant == "row" else {
+                n: time_ms(lambda: attention.flash_cross_attention(
+                    q, k, v, tile_rows=n), iters) for n in (32, 64)}
             rows.append(dict(shape=label, b=b, lq=lq, s=s, h=h, hd=hd,
-                             dtype=dtype, max_abs_err=err, ms=ms,
+                             dtype=dtype, variant=variant,
+                             ms_by_tile_rows=by_rows,
+                             max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
             log(f"[kernel] {label:24s} B={b:<4d} Lq={lq:<5d} {dtype:8s} "
-                f"err {err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                f"{variant:4s} err {err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                 f"  sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"({bound_by})"
+                + "".join(f"  {n} rows {t:.4f} ms"
+                          for n, t in by_rows.items()))
     return rows
 
 
@@ -266,12 +284,16 @@ def phase_serve(attention, engine_cls, runner_cls, load_model,
     zooms = list(np.linspace(0.5, 0.0625, 4))
     torch.cuda.synchronize()
     attention.launches = 0
+    attention.shape_counts.clear()
     t0 = time.perf_counter()
     results = [engine.cotr_corr_multiscale_with_cycle_consistency(
         a, b, zoom_ins=zooms, max_corrs=100) for a, b, _ in pairs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = attention.launches
+    shape_counts = [dict(b=b, lq=lq, s=s, dtype=dtype, launches=n)
+                    for (b, lq, s, dtype), n
+                    in sorted(attention.shape_counts.items())]
     summary = []
     for (img_a, img_b, hmat), corrs in zip(pairs, results):
         ha, wa = img_a.shape[:2]
@@ -297,9 +319,12 @@ def phase_serve(attention, engine_cls, runner_cls, load_model,
             f"{np.median(err):.2f} px, {np.mean(err <= 5.0):.0%} within 5 px")
     log(f"[serve] 3 pairs in {wall:.2f} s wall, attention kernel launches "
         f"{launches}")
+    for row in shape_counts:
+        log(f"[serve] launches at B={row['b']:<4d} Lq={row['lq']:<5d} "
+            f"S={row['s']:<4d} {row['dtype']}: {row['launches']}")
     if launches < 1:
         raise AssertionError("the serving path launched no attention kernel")
-    return wall, launches, summary
+    return wall, launches, shape_counts, summary
 
 
 def main() -> int:
@@ -322,7 +347,7 @@ def main() -> int:
     build_s = phase_build(attention)
     rows = phase_kernel(attention)
     forward = phase_forward(load_model, COTRConfig)
-    wall, launches, serve = phase_serve(attention, SparseEngine, ModelRunner,
+    wall, launches, shape_counts, serve = phase_serve(attention, SparseEngine, ModelRunner,
                                         load_model, COTRConfig)
 
     main_row = next(r for r in rows if r["shape"] == "dense decode chunk"
@@ -331,7 +356,7 @@ def main() -> int:
         name="flash_cross_attention", route="cuda",
         source="cotr_tpu_torch/csrc/attention.cu",
         replaces="cotr_tpu/ops/pallas_attention.py:70",
-        launches=launches,
+        launches=launches, shape_counts=shape_counts,
         max_abs_err=max(r["max_abs_err"] for r in rows
                         if r["dtype"] == "float32"),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],

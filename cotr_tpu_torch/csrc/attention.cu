@@ -4,54 +4,99 @@
 // Replaces: cotr_tpu/ops/pallas_attention.py, flash_cross_attention and its
 // Pallas body _attn_kernel. Per (batch, head) it computes
 //     out = softmax((q * 1/sqrt(hd)) k^T) v
-// over all S keys, with fp32 logits, an fp32 softmax, probabilities rounded
-// to the value dtype before the PV product (as the Pallas body does) and
-// fp32 accumulation. q (B, Lq, H, hd); k, v (B, S, H, hd); out (B, Lq, H, hd).
+// over all S keys, with fp32 logits, an fp32 softmax, the NORMALISED
+// probabilities rounded to the value dtype before the PV product (as the
+// Pallas body does) and fp32 accumulation. q (B, Lq, H, hd); k, v
+// (B, S, H, hd); out (B, Lq, H, hd); all read through their strides.
 //
-// What bounds it on this card: hd = 32 and S = 512 on the COTR path, so the
-// work per query is 2 * S * hd multiply-adds against hd loads and stores:
-// roughly 30 operations per byte, below the H100's fp32 ridge at batch
-// shapes with many queries (encoder Lq = 512, dense decode Lq = 8,192) and
-// far below it at the refinement decode (Lq = 1), which is bound by reading
-// K and V once.
+// Two kernels, chosen by the wrapper from Lq.
 //
-// What the design does about it:
-//   * one thread owns one query row: q and the output accumulator live in
-//     registers, so logits and probabilities never reach device memory (the
-//     point of the TPU kernel, which kept them in VMEM);
-//   * the block's 128 query rows share K/V tiles of 64 keys staged in shared
-//     memory; every thread of a warp reads the same key row, which the
-//     hardware broadcasts;
-//   * two passes over the keys (max and sum, then normalised probabilities
-//     times V) instead of an online rescaled accumulator: the TPU kernel
-//     rounds the NORMALISED probabilities to bf16 before the PV product, and
-//     only a second pass reproduces that rounding exactly;
-//   * no padding of Lq: the ragged query tile is masked, so the Lq = 1
-//     refinement decode costs one row, not 512 as the TPU kernel's padding
-//     did;
-//   * q, k, v and out are read through their strides in the (B, L, H, hd)
-//     layout, so no transposes are needed around the call.
-// Products run on the fp32 pipes, not the tensor cores: exact fp32 is what
-// the JAX reference computes at float32 (Precision.HIGHEST). A tensor-core
-// (wgmma) bf16 path is later work.
+// attention_kernel_tile (many query rows: encoder Lq = 512, dense decode
+// Lq = 8,192). What bounds it: operations, and among them not the products.
+// At hd = 32 a logit costs 128 tensor-core operations (64 for q k^T, 64 for
+// p v) and one exp. An SM does about 4,096 dense bf16 operations a clock but
+// only 16 exp, so the softmax, not the two products, sets the pace by about
+// 2x, and mma.sync-class tiles through nvcuda::wmma are enough: wgmma and
+// TMA would speed up the part that is not the limit. What the design does:
+//   * one block serves one (batch, head) and a tile of 32 or 64 query rows,
+//     and ALL S logits of the tile stay in shared memory (the "degenerate
+//     flash case" of the TPU kernel, which kept them in VMEM). So q k^T runs
+//     once, there is no online rescaling, and the normalised probabilities
+//     are rounded exactly where the Pallas body rounds them;
+//   * both products run on the tensor cores. bfloat16: m16n16k16 tiles, one
+//     product, the fp32 logits scaled after the product (q/sqrt(32) is not a
+//     bf16 number). float32: m16n16k8 TF32 tiles with every operand split in
+//     registers into hi = tf32(x) and lo = tf32(x - hi), and the three
+//     products lo*hi, hi*lo, hi*hi summed in the fp32 accumulator, small
+//     terms first. That keeps float32 within 1e-6 of exact fp32 products,
+//     where one TF32 product alone errs by 1e-3;
+//   * K, then V, stream through one staging buffer in tiles of 64 keys,
+//     16 bytes a thread; only the logits stay resident. Keys past S are
+//     zero-filled and get probability 0; rows past Lq are computed on zeros
+//     and never stored;
+//   * the softmax runs in shared memory, a warp to a row, maximum and sum
+//     by warp shuffles; in bfloat16 the probabilities are written in place
+//     over the front half of their own fp32 row.
+//
+// attention_kernel_row (Lq of a few rows: the refinement decode, Lq = 1 at a
+// batch of up to 256). What bounds it: bytes, reading K and V once. No
+// tensor cores. One block per (batch, head, query row); its threads split
+// the S keys, each reading whole key rows in 16-byte loads with q in
+// registers; block-wide maximum and sum by warp shuffles; then the threads
+// re-map to (key group, 16-byte column) for p v, so V is read coalesced, and
+// the partial outputs are reduced through shared memory. fp32 FMAs
+// throughout; only the order of the sums differs from the plain version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <mma.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int kQueryTile = 128;  // threads per block = query rows per block
-constexpr int kKeyTile = 64;     // keys staged in shared memory per step
+using namespace nvcuda;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kHeadDim = 32;
+constexpr int kKeyTile = 64;       // keys per staging step of the tile kernel
+constexpr int kStageRows = 64;     // staging buffer: 64 rows of kStageLd
+constexpr int kStageLd = 40;       // elements; also V's row stride there
+constexpr int kLogitsPad = 4;      // floats added to a logits row (banks)
+constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
+constexpr int kRowThreads = 128;
+constexpr int kRowMaxKeys = 8192;  // row kernel: logits + scratch under 48 KB
+
+struct Strides {  // in elements: batch, length, head of q, k, v, out
+  int64_t qb, ql, qh, kb, ks, kh, vb, vs, vh, ob, ol, oh;
+};
+
+// 16 bytes of T
+template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
+
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store16(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&x)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
 }
 // probabilities take the value dtype before the PV product
 __device__ __forceinline__ float round_prob(float p, float) { return p; }
@@ -59,120 +104,496 @@ __device__ __forceinline__ float round_prob(float p, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(p));
 }
 
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t s_stride,
-                                          int s0, int n) {
-  for (int idx = threadIdx.x; idx < kKeyTile * HD; idx += blockDim.x) {
-    const int j = idx / HD;
-    const int d = idx % HD;
-    dst[idx] = j < n ? to_float(src[(int64_t)(s0 + j) * s_stride + d]) : 0.0f;
+// ------------------------------------------------------------ tile kernel
+
+// tensor-core tile shapes and operand types per dtype
+template <typename T> struct Tc;
+template <> struct Tc<float> {
+  using elem = wmma::precision::tf32;
+  static constexpr int kK = 8;
+  static constexpr bool kSplit = true;   // hi/lo TF32 pieces, three products
+  static constexpr bool kScaleQ = true;  // q scaled in fp32 before the split
+  static constexpr int kLdK = 36;        // q and K row stride in staging
+};
+template <> struct Tc<__nv_bfloat16> {
+  using elem = __nv_bfloat16;
+  static constexpr int kK = 16;
+  static constexpr bool kSplit = false;
+  static constexpr bool kScaleQ = false;  // logits scaled after the product
+  static constexpr int kLdK = kStageLd;
+};
+
+template <typename T>
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, Tc<T>::kK,
+                             typename Tc<T>::elem, wmma::row_major>;
+template <typename T, typename Layout>
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, Tc<T>::kK,
+                             typename Tc<T>::elem, Layout>;
+template <typename T>
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, Tc<T>::kK, float>;
+
+// one operand of a product: the fragment as loaded (hi) and, for float32,
+// the TF32 remainder (lo)
+template <typename Frag> struct Operand { Frag hi, lo; };
+
+template <typename T, typename Frag>
+__device__ __forceinline__ void prepare(Operand<Frag>& op) {
+  if constexpr (Tc<T>::kSplit) {
+#pragma unroll
+    for (int t = 0; t < op.hi.num_elements; ++t) {
+      const float x = op.hi.x[t];
+      const float hi = wmma::__float_to_tf32(x);  // rounds to nearest
+      op.lo.x[t] = wmma::__float_to_tf32(x - hi);
+      op.hi.x[t] = hi;
+    }
   }
 }
 
-template <int HD>
-__device__ __forceinline__ float dot_row(const float* qr, const float* krow) {
-  const float4* k4 = reinterpret_cast<const float4*>(krow);
-  float acc = 0.0f;
+// c += a b. The tensor cores add into their accumulator with truncation, and
+// over the hundreds of steps of a 512-key sum that bias reaches 1e-5. So in
+// float32 only the small terms (2^-11 of the product) are summed there, in
+// `small`; each hi*hi product starts from zero and is added to `c` on the
+// fp32 pipes, which round to nearest. finish() folds `small` into `c`.
+template <typename T, typename FA, typename FB>
+__device__ __forceinline__ void mma(FragC<T>& c, FragC<T>& small,
+                                    const Operand<FA>& a,
+                                    const Operand<FB>& b) {
+  if constexpr (Tc<T>::kSplit) {
+    wmma::mma_sync(small, a.lo, b.hi, small);
+    wmma::mma_sync(small, a.hi, b.lo, small);
+    FragC<T> big;
+    wmma::fill_fragment(big, 0.0f);
+    wmma::mma_sync(big, a.hi, b.hi, big);
 #pragma unroll
-  for (int d4 = 0; d4 < HD / 4; ++d4) {
-    const float4 kv = k4[d4];
-    acc = fmaf(qr[4 * d4 + 0], kv.x, acc);
-    acc = fmaf(qr[4 * d4 + 1], kv.y, acc);
-    acc = fmaf(qr[4 * d4 + 2], kv.z, acc);
-    acc = fmaf(qr[4 * d4 + 3], kv.w, acc);
-  }
-  return acc;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kQueryTile)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int lq, int s,
-                 int64_t qb, int64_t ql, int64_t qh, int64_t kb, int64_t ks,
-                 int64_t kh, int64_t vb, int64_t vs, int64_t vh, int64_t ob,
-                 int64_t ol, int64_t oh, float scale) {
-  __shared__ __align__(16) float k_tile[kKeyTile * HD];
-  __shared__ __align__(16) float v_tile[kKeyTile * HD];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row = blockIdx.x * kQueryTile + threadIdx.x;
-  const bool valid = row < lq;
-
-  const T* kbase = k + b * kb + h * kh;
-  const T* vbase = v + b * vb + h * vh;
-
-  float qr[HD];
-  if (valid) {
-    const T* qrow = q + b * qb + (int64_t)row * ql + h * qh;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = to_float(qrow[d]) * scale;
+    for (int t = 0; t < c.num_elements; ++t) c.x[t] += big.x[t];
   } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = 0.0f;
-  }
-
-  // pass 1: row max and softmax denominator
-  float m = -INFINITY;
-  float l = 0.0f;
-  for (int s0 = 0; s0 < s; s0 += kKeyTile) {
-    const int n = min(kKeyTile, s - s0);
-    __syncthreads();
-    load_tile<T, HD>(k_tile, kbase, ks, s0, n);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float logit = dot_row<HD>(qr, k_tile + j * HD);
-      if (logit > m) {
-        l *= expf(m - logit);
-        m = logit;
-      }
-      l += expf(logit - m);
-    }
-  }
-
-  // pass 2: normalised probabilities times V
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
-  const T tag{};
-  for (int s0 = 0; s0 < s; s0 += kKeyTile) {
-    const int n = min(kKeyTile, s - s0);
-    __syncthreads();
-    load_tile<T, HD>(k_tile, kbase, ks, s0, n);
-    load_tile<T, HD>(v_tile, vbase, vs, s0, n);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float logit = dot_row<HD>(qr, k_tile + j * HD);
-      const float p = round_prob(expf(logit - m) / l, tag);
-      const float4* v4 = reinterpret_cast<const float4*>(v_tile + j * HD);
-#pragma unroll
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        const float4 vv = v4[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-  }
-
-  if (valid) {
-    T* orow = out + b * ob + (int64_t)row * ol + h * oh;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) store(orow + d, acc[d]);
+    wmma::mma_sync(c, a.hi, b.hi, c);
   }
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* out, int b,
-            int lq, int s, int h, const int64_t* st, float scale,
-            cudaStream_t stream) {
-  const dim3 grid((lq + kQueryTile - 1) / kQueryTile, h, b);
-  attention_kernel<T, HD><<<grid, kQueryTile, 0, stream>>>(
+template <typename T>
+__device__ __forceinline__ void finish(FragC<T>& c, const FragC<T>& small) {
+  if constexpr (Tc<T>::kSplit) {
+#pragma unroll
+    for (int t = 0; t < c.num_elements; ++t) c.x[t] += small.x[t];
+  }
+}
+
+// copy `rows` rows of kHeadDim elements from device memory (row stride
+// `stride`) to shared memory (row stride `ld`), 16 bytes a thread; rows at
+// or past `valid` are zero-filled; float32 rows are multiplied by `scale`
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
+                                           int64_t stride, int rows, int valid,
+                                           float scale) {
+  constexpr int n = Vec<T>::n;
+  constexpr int lanes = kHeadDim / n;
+  for (int idx = threadIdx.x; idx < rows * lanes; idx += blockDim.x) {
+    const int r = idx / lanes;
+    const int c = (idx % lanes) * n;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) {
+      raw = *reinterpret_cast<const uint4*>(src + (int64_t)r * stride + c);
+      if constexpr (std::is_same<T, float>::value) {
+        raw.x = __float_as_uint(__uint_as_float(raw.x) * scale);
+        raw.y = __float_as_uint(__uint_as_float(raw.y) * scale);
+        raw.z = __float_as_uint(__uint_as_float(raw.z) * scale);
+        raw.w = __float_as_uint(__uint_as_float(raw.w) * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
+  }
+}
+
+// one key tile on its way from device memory to the staging buffer, held in
+// registers so that the loads of the next tile are in flight while the
+// warps work on this one
+template <typename T, int kThreads>
+struct TileFetch {
+  static constexpr int n = Vec<T>::n;
+  static constexpr int lanes = kHeadDim / n;
+  static constexpr int kTotal = kKeyTile * lanes;
+  static constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
+  uint4 raw[kPer];
+
+  __device__ __forceinline__ void fetch(const T* src, int64_t stride, int valid) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / lanes;
+      const int c = (idx % lanes) * n;
+      raw[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (idx < kTotal && r < valid)
+        raw[i] = *reinterpret_cast<const uint4*>(src + (int64_t)r * stride + c);
+    }
+  }
+  __device__ __forceinline__ void commit(T* dst, int ld) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      if (idx < kTotal)
+        *reinterpret_cast<uint4*>(dst + (idx / lanes) * ld + (idx % lanes) * n) = raw[i];
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+constexpr int logits_ld(int s) {
+  return (s + kKeyTile - 1) / kKeyTile * kKeyTile + kLogitsPad;
+}
+template <typename T>
+constexpr int tile_shared_bytes(int rows, int s) {
+  return rows * logits_ld(s) * (int)sizeof(float) +
+         kStageRows * kStageLd * (int)sizeof(T);
+}
+
+// BM query rows a block, WN warps side by side on each 16 rows. In q k^T
+// they take alternate 16-key tiles. In p v the first two take alternate
+// 16-column halves of the output, and with WN = 4 the other two take every
+// second step over the keys, their partial outputs summed at the end.
+template <typename T, int BM, int WN>
+__global__ void __launch_bounds__((BM / 16) * WN * 32)
+attention_kernel_tile(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int lq,
+                      int s, int h, int row_tiles, Strides st, float scale) {
+  using tc = Tc<T>;
+  constexpr int kK = tc::kK;
+  constexpr int kRowGroups = BM / 16;
+  constexpr int kWarps = kRowGroups * WN;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kOutTiles = kHeadDim / 16;
+  constexpr int kOutSplit = WN < kOutTiles ? WN : kOutTiles;
+  constexpr int kKeySplit = WN / kOutSplit;
+  constexpr int kMine = kOutTiles / kOutSplit;  // output tiles of one warp
+  static_assert(BM <= kStageRows && kOutTiles % kOutSplit == 0 &&
+                WN % kOutSplit == 0 && (kKeyTile / 16) % WN == 0 &&
+                kKeySplit * kHeadDim <= kKeyTile, "tile shape");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int s_pad = (s + kKeyTile - 1) / kKeyTile * kKeyTile;
+  const int ld = s_pad + kLogitsPad;
+  float* logits = reinterpret_cast<float*>(smem);
+  T* stage = reinterpret_cast<T*>(smem + (size_t)BM * ld * sizeof(float));
+
+  const int tile = blockIdx.x % row_tiles;
+  const int bh = blockIdx.x / row_tiles;
+  const int hh = bh % h;
+  const int b = bh / h;
+  const int row0 = tile * BM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rg = warp % kRowGroups;
+  const int ch = warp / kRowGroups;
+
+  const T* qbase = q + b * st.qb + (int64_t)row0 * st.ql + hh * st.qh;
+  const T* kbase = k + b * st.kb + hh * st.kh;
+  const T* vbase = v + b * st.vb + hh * st.vh;
+
+  TileFetch<T, kThreads> next;
+  next.fetch(kbase, st.ks, min(kKeyTile, s));
+
+  // q: through the staging buffer into fragments that stay in registers
+  stage_rows<T>(stage, tc::kLdK, qbase, st.ql, BM, min(BM, lq - row0),
+                tc::kScaleQ ? scale : 1.0f);
+  __syncthreads();
+  Operand<FragA<T>> qf[kHeadDim / kK];
+#pragma unroll
+  for (int ks = 0; ks < kHeadDim / kK; ++ks) {
+    wmma::load_matrix_sync(qf[ks].hi, stage + rg * 16 * tc::kLdK + ks * kK,
+                           tc::kLdK);
+    prepare<T>(qf[ks]);
+  }
+  __syncthreads();
+
+  // logits = q k^T, one key tile at a time; the first V tile is fetched
+  // under the last K tile and the softmax
+  for (int k0 = 0; k0 < s_pad; k0 += kKeyTile) {
+    next.commit(stage, tc::kLdK);
+    __syncthreads();
+    const int k1 = k0 + kKeyTile;
+    if (k1 < s_pad)
+      next.fetch(kbase + (int64_t)k1 * st.ks, st.ks, min(kKeyTile, s - k1));
+    else
+      next.fetch(vbase, st.vs, min(kKeyTile, s));
+#pragma unroll
+    for (int nt = ch; nt < kKeyTile / 16; nt += WN) {
+      FragC<T> acc, small;
+      wmma::fill_fragment(acc, 0.0f);
+      wmma::fill_fragment(small, 0.0f);
+#pragma unroll
+      for (int ks = 0; ks < kHeadDim / kK; ++ks) {
+        Operand<FragB<T, wmma::col_major>> kf;
+        wmma::load_matrix_sync(kf.hi, stage + nt * 16 * tc::kLdK + ks * kK,
+                               tc::kLdK);
+        prepare<T>(kf);
+        mma<T>(acc, small, qf[ks], kf);
+      }
+      finish<T>(acc, small);
+      if constexpr (!tc::kScaleQ) {
+#pragma unroll
+        for (int t = 0; t < acc.num_elements; ++t) acc.x[t] *= scale;
+      }
+      wmma::store_matrix_sync(logits + rg * 16 * ld + k0 + nt * 16, acc, ld,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+  }
+
+  // softmax, a warp to a row; the probabilities replace the logits
+  for (int r = warp; r < BM; r += kWarps) {
+    float* row = logits + r * ld;
+    float m = -INFINITY;
+    for (int c = lane; c < s; c += 32) m = fmaxf(m, row[c]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = lane; c < s; c += 32) {
+      const float e = expf(row[c] - m);
+      row[c] = e;
+      l += e;
+    }
+    const float inv = 1.0f / warp_sum(l);
+    if constexpr (std::is_same<T, float>::value) {
+      for (int c = lane; c < s_pad; c += 32) row[c] = c < s ? row[c] * inv : 0.0f;
+    } else {
+      // in place over the front half of the row: the bf16 values of columns
+      // [c0, c0 + 32) land on the floats of columns [c0 / 2, c0 / 2 + 16),
+      // which every lane has read once the warp passes the barrier
+      __nv_bfloat16* prow = reinterpret_cast<__nv_bfloat16*>(row);
+      for (int c0 = 0; c0 < s_pad; c0 += 32) {
+        const int c = c0 + lane;
+        const float p = c < s ? row[c] * inv : 0.0f;
+        __syncwarp();
+        prow[c] = __float2bfloat16(p);
+      }
+    }
+  }
+  __syncthreads();
+
+  // out = p v, one key tile at a time
+  const T* probs = reinterpret_cast<const T*>(logits);
+  const int ldp = ld * (int)(sizeof(float) / sizeof(T));
+  const int oc = ch % kOutSplit;  // which output columns
+  const int kc = ch / kOutSplit;  // which steps over the keys
+  FragC<T> oacc[kMine], osmall[kMine];
+#pragma unroll
+  for (int i = 0; i < kMine; ++i) {
+    wmma::fill_fragment(oacc[i], 0.0f);
+    wmma::fill_fragment(osmall[i], 0.0f);
+  }
+  for (int k0 = 0; k0 < s_pad; k0 += kKeyTile) {
+    next.commit(stage, kStageLd);
+    __syncthreads();
+    const int k1 = k0 + kKeyTile;
+    if (k1 < s_pad)
+      next.fetch(vbase + (int64_t)k1 * st.vs, st.vs, min(kKeyTile, s - k1));
+#pragma unroll
+    for (int kk = kc * kK; kk < kKeyTile; kk += kKeySplit * kK) {
+      Operand<FragA<T>> pf;
+      wmma::load_matrix_sync(pf.hi, probs + rg * 16 * ldp + k0 + kk, ldp);
+      prepare<T>(pf);
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        Operand<FragB<T, wmma::row_major>> vf;
+        wmma::load_matrix_sync(
+            vf.hi, stage + kk * kStageLd + (oc + i * kOutSplit) * 16, kStageLd);
+        prepare<T>(vf);
+        mma<T>(oacc[i], osmall[i], pf, vf);
+      }
+    }
+    __syncthreads();
+  }
+
+  // the probabilities are spent (the loop's last barrier): the front of the
+  // logits rows takes the fp32 output tile, one copy for each split of the
+  // keys side by side; then 16 bytes a thread go out
+#pragma unroll
+  for (int i = 0; i < kMine; ++i) {
+    finish<T>(oacc[i], osmall[i]);
+    wmma::store_matrix_sync(
+        logits + rg * 16 * ld + kc * kHeadDim + (oc + i * kOutSplit) * 16,
+        oacc[i], ld, wmma::mem_row_major);
+  }
+  __syncthreads();
+  constexpr int n = Vec<T>::n;
+  constexpr int lanes = kHeadDim / n;
+  T* obase = out + b * st.ob + (int64_t)row0 * st.ol + hh * st.oh;
+  for (int idx = threadIdx.x; idx < BM * lanes; idx += kThreads) {
+    const int r = idx / lanes;
+    const int c = (idx % lanes) * n;
+    if (row0 + r < lq) {
+      float x[n];
+#pragma unroll
+      for (int i = 0; i < n; ++i) {
+        x[i] = logits[r * ld + c + i];
+#pragma unroll
+        for (int j = 1; j < kKeySplit; ++j) x[i] += logits[r * ld + j * kHeadDim + c + i];
+      }
+      store16(obase + (int64_t)r * st.ol + c, x);
+    }
+  }
+}
+
+template <typename T, int BM, int WN>
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
+                        int b, int lq, int s, int h, const Strides& st,
+                        float scale, cudaStream_t stream) {
+  const int bytes = tile_shared_bytes<T>(BM, s);
+  if (bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
+  const int row_tiles = (lq + BM - 1) / BM;
+  const int64_t blocks = (int64_t)b * h * row_tiles;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  auto kernel = attention_kernel_tile<T, BM, WN>;
+  // above 48 KB a launch is refused unless the kernel was told so
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, (BM / 16) * WN * 32, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lq, s, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      static_cast<const T*>(v), static_cast<T*>(out), lq, s, h, row_tiles, st,
       scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- row kernel
+
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* scratch) {
+  x = kMax ? warp_max(x) : warp_sum(x);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = x;
+  __syncthreads();
+  float r = scratch[0];
+  for (int w = 1; w < kRowThreads / 32; ++w)
+    r = kMax ? fmaxf(r, scratch[w]) : r + scratch[w];
+  __syncthreads();  // scratch is free again
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+attention_kernel_row(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, int lq,
+                     int s, int h, Strides st, float scale) {
+  constexpr int n = Vec<T>::n;
+  constexpr int lanes = kHeadDim / n;           // threads across one row
+  constexpr int groups = kRowThreads / lanes;   // key groups in p v
+  extern __shared__ __align__(16) float shared[];
+  float* probs = shared;                        // s logits, then probabilities
+  float* partial = shared + (s + 3) / 4 * 4;    // groups x kHeadDim
+  float* scratch = partial + groups * kHeadDim;  // one float a warp
+
+  const int row = blockIdx.x % lq;
+  const int bh = blockIdx.x / lq;
+  const int hh = bh % h;
+  const int b = bh / h;
+  const T* qrow = q + b * st.qb + (int64_t)row * st.ql + hh * st.qh;
+  const T* kbase = k + b * st.kb + hh * st.kh;
+  const T* vbase = v + b * st.vb + hh * st.vh;
+
+  float qr[kHeadDim];
+#pragma unroll
+  for (int c = 0; c < kHeadDim; c += n) {
+    float x[n];
+    load16(qrow + c, x);
+#pragma unroll
+    for (int i = 0; i < n; ++i) qr[c + i] = x[i] * scale;
+  }
+
+  // logits: a thread to a key, the whole key row in 16-byte loads
+  float m = -INFINITY;
+  for (int j = threadIdx.x; j < s; j += kRowThreads) {
+    const T* krow = kbase + (int64_t)j * st.ks;
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kHeadDim; c += n) {
+      float x[n];
+      load16(krow + c, x);
+#pragma unroll
+      for (int i = 0; i < n; ++i) acc = fmaf(qr[c + i], x[i], acc);
+    }
+    probs[j] = acc;
+    m = fmaxf(m, acc);
+  }
+  m = block_reduce<true>(m, scratch);
+  float l = 0.0f;
+  for (int j = threadIdx.x; j < s; j += kRowThreads) {
+    const float e = expf(probs[j] - m);
+    probs[j] = e;
+    l += e;
+  }
+  l = block_reduce<false>(l, scratch);
+  const T tag{};
+  for (int j = threadIdx.x; j < s; j += kRowThreads)
+    probs[j] = round_prob(probs[j] / l, tag);
+  __syncthreads();
+
+  // p v: `lanes` threads across a value row, `groups` keys at a time
+  const int c = (threadIdx.x % lanes) * n;
+  const int g = threadIdx.x / lanes;
+  float acc[n];
+#pragma unroll
+  for (int i = 0; i < n; ++i) acc[i] = 0.0f;
+  for (int j = g; j < s; j += groups) {
+    const float p = probs[j];
+    float x[n];
+    load16(vbase + (int64_t)j * st.vs + c, x);
+#pragma unroll
+    for (int i = 0; i < n; ++i) acc[i] = fmaf(p, x[i], acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < n; ++i) partial[g * kHeadDim + c + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < lanes) {
+    float x[n];
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      float sum = 0.0f;
+      for (int gg = 0; gg < groups; ++gg) sum += partial[gg * kHeadDim + c + i];
+      x[i] = sum;
+    }
+    store16(out + b * st.ob + (int64_t)row * st.ol + hh * st.oh + c, x);
+  }
+}
+
+template <typename T>
+cudaError_t launch_row(const void* q, const void* k, const void* v, void* out,
+                       int b, int lq, int s, int h, const Strides& st,
+                       float scale, cudaStream_t stream) {
+  if (s > kRowMaxKeys) return cudaErrorInvalidValue;
+  const int64_t blocks = (int64_t)b * h * lq;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  constexpr int groups = kRowThreads / (kHeadDim / Vec<T>::n);
+  const int bytes = ((s + 3) / 4 * 4 + groups * kHeadDim + 32) * (int)sizeof(float);
+  attention_kernel_row<T><<<(unsigned)blocks, kRowThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lq, s, h, st, scale);
+  return cudaGetLastError();
+}
+
+constexpr int kColWarps = 4;  // 8 warps on 32 rows, 16 on 64
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int b, int lq, int s, int h, const Strides& st, float scale,
+                   int tile_rows, cudaStream_t stream) {
+  if (tile_rows == 0)
+    return launch_row<T>(q, k, v, out, b, lq, s, h, st, scale, stream);
+  if (tile_rows == 32)
+    return launch_tile<T, 32, kColWarps>(q, k, v, out, b, lq, s, h, st, scale,
+                                         stream);
+  if (tile_rows == 64)
+    return launch_tile<T, 64, kColWarps>(q, k, v, out, b, lq, s, h, st, scale,
+                                         stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -181,24 +602,30 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides (in elements) are the batch,
 // length and head strides of q, k, v and out, in that order; the last
-// dimension must be contiguous. scale is 1/sqrt(hd), rounded to float by the
-// caller exactly as the reference rounds it. Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for a shape this kernel does not take.
+// dimension must be contiguous, and every pointer and stride must allow
+// 16-byte loads. scale is 1/sqrt(hd), rounded to float by the caller exactly
+// as the reference rounds it. tile_rows: 0 launches the row kernel, 32 or 64
+// the tile kernel with that many query rows a block. Returns the CUDA error of the launch,
+// or cudaErrorInvalidValue for a shape these kernels do not take.
 int cotr_flash_attention(const void* q, const void* k, const void* v,
                          void* out, int b, int lq, int s, int h, int hd,
                          int dtype, const int64_t* strides, float scale,
-                         void* stream) {
-  if (b < 1 || b > 65535 || h < 1 || h > 65535 || lq < 1 || s < 1)
+                         int tile_rows, void* stream) {
+  if (b < 1 || h < 1 || lq < 1 || s < 1 || hd != kHeadDim)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 32) {
-    launch<float, 32>(q, k, v, out, b, lq, s, h, strides, scale, st);
-  } else if (dtype == 1 && hd == 32) {
-    launch<__nv_bfloat16, 32>(q, k, v, out, b, lq, s, h, strides, scale, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  Strides st;
+  st.qb = strides[0]; st.ql = strides[1]; st.qh = strides[2];
+  st.kb = strides[3]; st.ks = strides[4]; st.kh = strides[5];
+  st.vb = strides[6]; st.vs = strides[7]; st.vh = strides[8];
+  st.ob = strides[9]; st.ol = strides[10]; st.oh = strides[11];
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, out, b, lq, s, h, st, scale, tile_rows,
+                              cs);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, out, b, lq, s, h, st, scale,
+                                      tile_rows, cs);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

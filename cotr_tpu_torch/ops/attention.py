@@ -1,4 +1,5 @@
-"""Fused cross-attention: the hand-written Hopper kernel and its plain version.
+"""Fused cross-attention: the hand-written Hopper kernels and their plain
+version.
 
 Counterpart of ``cotr_tpu/ops/pallas_attention.py`` (``flash_cross_attention``
 over the Pallas body ``_attn_kernel``). Every attention of the model goes
@@ -6,18 +7,23 @@ through :func:`flash_cross_attention`: the encoder self-attention (Lq = S =
 512), the dense decode (Lq = 8,192 per chunk) and the refinement decode
 (Lq = 1).
 
-* On a CUDA tensor it launches ``csrc/attention.cu``, built with ``nvcc`` for
-  ``sm_90a`` into ``build/`` at first use and bound with ctypes. A shape,
-  dtype or layout the kernel does not take raises; nothing falls back.
+* On a CUDA tensor it launches one of the two kernels of
+  ``csrc/attention.cu``, built with ``nvcc`` for ``sm_90a`` into ``build/``
+  at first use and bound with ctypes. :func:`choose_kernel` picks by Lq: the
+  row kernel (threads split the keys of one query row) up to
+  ``ROW_MAX_LQ`` rows, the tile kernel (both products on the tensor cores,
+  all logits of a query tile in shared memory) above. A shape, dtype or
+  layout neither takes raises; nothing falls back.
 * On a CPU tensor it runs :func:`flash_cross_attention_plain`, the same
   arithmetic written with einsum and softmax.
 
-``launches`` counts kernel launches, so a run can show that its path went
-through the kernel.
+``launches`` counts kernel launches and ``shape_counts`` counts them by
+shape, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import math
@@ -34,8 +40,26 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 32  # d_model / nheads of every COTR configuration in use
 
+#: the row kernel serves Lq up to this, the tile kernel above it
+ROW_MAX_LQ = 16
+#: most keys the row kernel takes (its logits stay under 48 KB a block)
+ROW_MAX_KEYS = 8192
+# the tile kernel's shared memory (mirrors csrc/attention.cu): fp32 logits of
+# a tile of query rows over S rounded up to whole key tiles, plus padding,
+# and one staging buffer
+_KEY_TILE = 64
+_LOGITS_PAD = 4
+_STAGE_ELEMS = 64 * 40
+_MAX_SHARED_BYTES = 232448  # 227 KB a block on sm_90
+#: query rows a block of the tile kernel: 32 was faster than 64 at every
+#: main-path shape on the H100 (three blocks fit an SM, against one)
+TILE_ROWS = 32
+_TILE_ROWS_BUILT = (32, 64)
+
 #: kernel launches since the last reset (set it to 0 to start a count)
 launches = 0
+#: launches by (B, Lq, S, dtype name) since the last ``shape_counts.clear()``
+shape_counts: collections.Counter = collections.Counter()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -81,7 +105,7 @@ def _library():
             fn = lib.cotr_flash_attention
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                            + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                              ctypes.c_void_p])
+                              ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -111,26 +135,103 @@ def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor) -> tuple:
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+def flash_cross_attention_split_tf32_emulated(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The float32 tile kernel's arithmetic in plain PyTorch, for tests: each
+    operand of both products is split into TF32 pieces ``hi`` and ``lo``, and
+    ``lo*hi + hi*lo + hi*hi`` is summed in fp32. Nothing on any path calls
+    it."""
+    _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError("the split-TF32 products are the float32 path")
+
+    def product(eq, a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), _split_tf32(b)
+        return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+                + torch.einsum(eq, a_hi, b_hi))
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = product("bqhd,bkhd->bhqk", q * scale, k)
+    probs = torch.softmax(logits, dim=-1)
+    return product("bhqk,bkhd->bqhd", probs, v)
+
+
+def tile_shared_bytes(rows: int, s: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the tile kernel."""
+    s_pad = -(-s // _KEY_TILE) * _KEY_TILE
+    return (rows * (s_pad + _LOGITS_PAD) * 4
+            + _STAGE_ELEMS * torch.finfo(dtype).bits // 8)
+
+
+def choose_kernel(lq: int, s: int, dtype: torch.dtype) -> str:
+    """Which kernel serves Lq query rows over S keys: ``"row"`` or
+    ``"tile"``. Raises ValueError for what neither takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"attention kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    if lq < 1 or s < 1:
+        raise ValueError(f"empty attention: Lq {lq}, S {s}")
+    if lq <= ROW_MAX_LQ:
+        if s > ROW_MAX_KEYS:
+            raise ValueError(f"the row kernel takes at most {ROW_MAX_KEYS} "
+                             f"keys, got {s}")
+        return "row"
+    if tile_shared_bytes(TILE_ROWS, s, dtype) > _MAX_SHARED_BYTES:
+        limit = max(n for n in range(_KEY_TILE, s, _KEY_TILE)
+                    if tile_shared_bytes(TILE_ROWS, n, dtype)
+                    <= _MAX_SHARED_BYTES)
+        raise ValueError(
+            f"the tile kernel keeps all logits of {TILE_ROWS} query "
+            f"rows in {_MAX_SHARED_BYTES} bytes of shared memory: at most "
+            f"{limit} keys, got {s}")
+    return "tile"
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            tile_rows: int | None = None) -> torch.Tensor:
     global launches
     _check(q, k, v)
     b, lq, h, hd = q.shape
     s = k.shape[1]
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"attention kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
     if hd != _HEAD_DIM:
-        raise ValueError(f"attention kernel takes head dim {_HEAD_DIM}, "
+        raise ValueError(f"attention kernels take head dim {_HEAD_DIM}, "
                          f"got {hd}")
+    kernel = choose_kernel(lq, s, q.dtype)
+    if kernel == "row":
+        if tile_rows is not None:
+            raise ValueError(f"Lq {lq} goes to the row kernel, which has no "
+                             f"tile height")
+        tile_rows = 0
+    elif tile_rows is None:
+        tile_rows = TILE_ROWS
+    elif (tile_rows not in _TILE_ROWS_BUILT or tile_shared_bytes(
+            tile_rows, s, q.dtype) > _MAX_SHARED_BYTES):
+        raise ValueError(f"no tile kernel of {tile_rows} rows for {s} keys")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dimension of q, k, v must be contiguous")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or heads {h} beyond the launch grid")
+    vec = 16 // q.element_size()
+    if any(t.data_ptr() % 16 or any(n % vec for n in t.stride()[:3])
+           for t in (q, k, v)):
+        raise ValueError("q, k, v must allow 16-byte loads: data pointers "
+                         "aligned to 16 bytes, strides multiples of "
+                         f"{vec} elements")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        # like the TPU kernel, this one has no backward
-        raise RuntimeError("the attention kernel is forward-only; run it "
+        # like the TPU kernel, these have no backward
+        raise RuntimeError("the attention kernels are forward-only; run them "
                            "under torch.no_grad() or inference_mode()")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_int64 * 12)(
@@ -140,21 +241,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         err = _library().cotr_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, s, h, hd, _DTYPES[q.dtype], strides,
-            1.0 / math.sqrt(hd), stream)
+            1.0 / math.sqrt(hd), tile_rows, stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     launches += 1
+    shape_counts[(b, lq, s, str(q.dtype).removeprefix("torch."))] += 1
     return out
 
 
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
+                          v: torch.Tensor,
+                          tile_rows: int | None = None) -> torch.Tensor:
     """q (B, Lq, H, hd); k, v (B, S, H, hd) -> (B, Lq, H, hd).
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version."""
+    CUDA tensors go to a kernel (or raise); CPU tensors to the plain
+    version. ``tile_rows`` (32 or 64) overrides the tile kernel's own choice
+    of query rows a block, for timing one against the other."""
     if q.is_cuda:
-        return _launch(q, k, v)
+        return _launch(q, k, v, tile_rows)
     if q.device.type == "cpu":
         return flash_cross_attention_plain(q, k, v)
     raise ValueError(f"no attention path for device {q.device}")

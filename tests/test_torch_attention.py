@@ -42,8 +42,10 @@ def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrapper runs the plain version and launches nothing."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(3))
     before = attention.launches
+    counts = dict(attention.shape_counts)
     out = attention.flash_cross_attention(q, k, v)
     assert attention.launches == before
+    assert dict(attention.shape_counts) == counts
     torch.testing.assert_close(
         out, attention.flash_cross_attention_plain(q, k, v), rtol=0, atol=0)
 
@@ -52,3 +54,100 @@ def test_plain_rejects_mismatched_shapes():
     q, k, v = (torch.from_numpy(x) for x in _inputs(4))
     with pytest.raises(ValueError):
         attention.flash_cross_attention(q, k[:, :, :2], v)
+
+
+# the float32 tile kernel's split-TF32 products, emulated on the CPU: the
+# pieces hi and lo carry 21 of fp32's 24 mantissa bits between them and the
+# dropped lo*lo term is 2**-22 of a product, so the result stays as close to
+# exact fp32 products as their own summation order does
+@pytest.mark.parametrize("lq", [512, 600])
+def test_split_tf32_emulation_matches_plain(lq):
+    q, k, v = (torch.from_numpy(x) for x in _inputs(lq))
+    got = attention.flash_cross_attention_split_tf32_emulated(q, k, v)
+    want = attention.flash_cross_attention_plain(q, k, v)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=_TOL["float32"])
+
+
+@pytest.mark.parametrize("lq", [512, 600])
+def test_split_tf32_emulation_matches_pallas_interpret(lq):
+    q, k, v = _inputs(lq)
+    want = np.asarray(jax_attn(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), interpret=True))
+    got = attention.flash_cross_attention_split_tf32_emulated(
+        *(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, atol=_TOL["float32"])
+
+
+def test_one_tf32_product_alone_misses_the_gate():
+    """Why the split is there: hi*hi alone is three digits, not seven."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(512))
+    hi = [attention._round_tf32(x) for x in (q, k, v)]
+    err = (attention.flash_cross_attention_plain(*hi)
+           - attention.flash_cross_attention_plain(q, k, v)).abs().max()
+    assert err > 10 * _TOL["float32"]
+
+
+def test_split_tf32_emulation_is_float32_only():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(4))
+    with pytest.raises(ValueError):
+        attention.flash_cross_attention_split_tf32_emulated(q, k, v)
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    x = torch.tensor([1.0, 1.0 + 0.25 * ulp, 1.0 + 0.5 * ulp,
+                      1.0 + 0.75 * ulp, -1.0 - 0.5 * ulp, -1.0 - 0.25 * ulp,
+                      0.0, 3.0e-3], dtype=torch.float32)
+    got = attention._round_tf32(x)
+    want = torch.tensor([1.0, 1.0, 1.0 + ulp, 1.0 + ulp, -1.0 - ulp, -1.0,
+                         0.0, 0.0], dtype=torch.float32)
+    assert torch.equal(got[:7], want[:7])
+    assert abs(got[7].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    hi, lo = attention._split_tf32(x)
+    assert (x - (hi + lo)).abs().max() <= 2.0 ** -22 * 1.5
+
+
+_TOO_MANY_KEYS = 100_000
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [128, 512, 520, _TOO_MANY_KEYS])
+@pytest.mark.parametrize("lq", [1, 2, 15, 16, 17, 64, 65, 600])
+def test_dispatch_rule(lq, s, dtype):
+    td = getattr(torch, dtype)
+    if s == _TOO_MANY_KEYS:
+        with pytest.raises(ValueError, match="at most"):
+            attention.choose_kernel(lq, s, td)
+        return
+    want = "row" if lq <= attention.ROW_MAX_LQ else "tile"
+    assert attention.choose_kernel(lq, s, td) == want
+    if want == "tile":
+        assert attention.tile_shared_bytes(attention.TILE_ROWS, s, td) \
+            <= 232448
+
+
+@pytest.mark.parametrize("lq,s,dtype", [(1, 512, torch.float16),
+                                        (64, 512, torch.float64),
+                                        (0, 512, torch.float32),
+                                        (64, 0, torch.float32)])
+def test_dispatch_refuses(lq, s, dtype):
+    with pytest.raises(ValueError):
+        attention.choose_kernel(lq, s, dtype)
+
+
+def test_dispatch_key_limits():
+    """The row kernel takes more keys than the tile kernel, whose limit is
+    the shared memory that holds a tile's logits; the error names it."""
+    f32 = torch.float32
+    assert attention.choose_kernel(1, attention.ROW_MAX_KEYS, f32) == "row"
+    with pytest.raises(ValueError, match=str(attention.ROW_MAX_KEYS)):
+        attention.choose_kernel(1, attention.ROW_MAX_KEYS + 1, f32)
+    assert attention.choose_kernel(64, 1728, f32) == "tile"
+    with pytest.raises(ValueError, match="1728"):
+        attention.choose_kernel(64, 1729, f32)
+    # 512 keys round up to 8 key tiles of 64; 520 to 9
+    assert attention.tile_shared_bytes(32, 512, f32) == 32 * 516 * 4 + 10240
+    assert attention.tile_shared_bytes(64, 520, torch.bfloat16) \
+        == 64 * 580 * 4 + 5120

@@ -1,4 +1,4 @@
-"""The hand-written CUDA attention kernel vs its plain version, on a card.
+"""The hand-written CUDA attention kernels vs their plain version, on a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -15,7 +15,10 @@ import torch
 
 from cotr_tpu_torch.ops import attention
 
-# f32: exact fp32 products on both sides, reduction order differs;
+# f32: the plain version and the row kernel compute exact fp32 products in
+# different orders of summation; the tile kernel splits every operand into
+# two TF32 pieces and sums three tensor-core products, which drops the
+# 2**-22 tail of each product (lo*lo and the rounding of lo);
 # bf16: probabilities and outputs round to bf16 (ulp 2**-8 near 1)
 _TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -37,14 +40,46 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,lq", [(2, 512), (4, 8192), (256, 1), (2, 600)])
+@pytest.mark.parametrize("b,lq", [(2, 512), (256, 512), (4, 8192), (256, 1),
+                                  (2, 600)])
 def test_kernel_matches_plain(card, b, lq, dtype):
     td = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(card, td) for x in _inputs(b, lq))
     before = attention.launches
+    attention.shape_counts.clear()
     got = attention.flash_cross_attention(q, k, v)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
+    assert dict(attention.shape_counts) == {(b, lq, 512, dtype): 1}
+    want = attention.flash_cross_attention_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [128, 520])
+@pytest.mark.parametrize("lq", [2, 15, 16, 17, 64, 65])
+def test_both_sides_of_the_threshold(card, lq, s, dtype):
+    """The row kernel up to ROW_MAX_LQ rows, the tile kernel above, at key
+    counts that are and are not whole key tiles."""
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(card, td)
+               for x in _inputs(3, lq, s=s, seed=lq + s))
+    got = attention.flash_cross_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = attention.flash_cross_attention_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile_rows", [32, 64])
+def test_tile_heights_agree(card, tile_rows, dtype):
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(card, td) for x in _inputs(2, 600))
+    got = attention.flash_cross_attention(q, k, v, tile_rows=tile_rows)
     want = attention.flash_cross_attention_plain(q, k, v)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=_TOL[dtype])
@@ -69,3 +104,9 @@ def test_kernel_refuses_what_it_does_not_take(card):
                for x in _inputs(1, 4))
     with pytest.raises(ValueError):
         attention.flash_cross_attention(q, k, v)  # float16
+    q, k, v = (torch.from_numpy(x).to(card) for x in _inputs(1, 64, s=1729))
+    with pytest.raises(ValueError, match="1728"):
+        attention.flash_cross_attention(q, k, v)  # logits beyond shared memory
+    q, k, v = (torch.from_numpy(x).to(card) for x in _inputs(1, 64))
+    with pytest.raises(ValueError):
+        attention.flash_cross_attention(q[..., 1:], k[..., 1:], v[..., 1:])
