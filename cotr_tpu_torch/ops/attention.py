@@ -12,7 +12,7 @@ through :func:`flash_cross_attention`: the encoder self-attention (Lq = S =
   at first use and bound with ctypes. :func:`choose_kernel` picks by Lq: the
   row kernel (threads split the keys of one query row) up to
   ``ROW_MAX_LQ`` rows, the tile kernel (both products on the tensor cores,
-  all logits of a query tile in shared memory) above. A shape, dtype or
+  logits and probabilities kept in registers) above. A shape, dtype or
   layout neither takes raises; nothing falls back.
 * On a CPU tensor it runs :func:`flash_cross_attention_plain`, the same
   arithmetic written with einsum and softmax.
@@ -42,19 +42,14 @@ _HEAD_DIM = 32  # d_model / nheads of every COTR configuration in use
 
 #: the row kernel serves Lq up to this, the tile kernel above it
 ROW_MAX_LQ = 16
-#: most keys the row kernel takes (its logits stay under 48 KB a block)
+#: most keys the row kernel takes (its logits stay under 48 KB a block);
+#: beyond, the tile kernel serves few rows too, the rest of its tile masked
 ROW_MAX_KEYS = 8192
-# the tile kernel's shared memory (mirrors csrc/attention.cu): fp32 logits of
-# a tile of query rows over S rounded up to whole key tiles, plus padding,
-# and one staging buffer
-_KEY_TILE = 64
-_LOGITS_PAD = 4
-_STAGE_ELEMS = 64 * 40
-_MAX_SHARED_BYTES = 232448  # 227 KB a block on sm_90
-#: query rows a block of the tile kernel: 32 was faster than 64 at every
-#: main-path shape on the H100 (three blocks fit an SM, against one)
-TILE_ROWS = 32
-_TILE_ROWS_BUILT = (32, 64)
+#: query rows a block of the tile kernel (16 a warp) by dtype: what was
+#: faster on the H100 at the large main-path shapes, by about a tenth in
+#: bfloat16 and by nothing in float32 (PERF.md)
+TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+_TILE_ROWS_BUILT = (64, 128)
 
 #: kernel launches since the last reset (set it to 0 to start a count)
 launches = 0
@@ -149,10 +144,10 @@ def _split_tf32(x: torch.Tensor) -> tuple:
 
 def flash_cross_attention_split_tf32_emulated(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The float32 tile kernel's arithmetic in plain PyTorch, for tests: each
-    operand of both products is split into TF32 pieces ``hi`` and ``lo``, and
-    ``lo*hi + hi*lo + hi*hi`` is summed in fp32. Nothing on any path calls
-    it."""
+    """The float32 tile kernel's products in plain PyTorch, for tests: each
+    operand of q k^T and of p v is split into TF32 pieces ``hi`` and ``lo``,
+    and ``lo*hi + hi*lo + hi*hi`` is summed in fp32. Nothing on any path
+    calls it."""
     _check(q, k, v)
     if q.dtype != torch.float32:
         raise ValueError("the split-TF32 products are the float32 path")
@@ -168,13 +163,6 @@ def flash_cross_attention_split_tf32_emulated(
     return product("bhqk,bkhd->bqhd", probs, v)
 
 
-def tile_shared_bytes(rows: int, s: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block of the tile kernel."""
-    s_pad = -(-s // _KEY_TILE) * _KEY_TILE
-    return (rows * (s_pad + _LOGITS_PAD) * 4
-            + _STAGE_ELEMS * torch.finfo(dtype).bits // 8)
-
-
 def choose_kernel(lq: int, s: int, dtype: torch.dtype) -> str:
     """Which kernel serves Lq query rows over S keys: ``"row"`` or
     ``"tile"``. Raises ValueError for what neither takes."""
@@ -183,19 +171,8 @@ def choose_kernel(lq: int, s: int, dtype: torch.dtype) -> str:
                          f"got {dtype}")
     if lq < 1 or s < 1:
         raise ValueError(f"empty attention: Lq {lq}, S {s}")
-    if lq <= ROW_MAX_LQ:
-        if s > ROW_MAX_KEYS:
-            raise ValueError(f"the row kernel takes at most {ROW_MAX_KEYS} "
-                             f"keys, got {s}")
+    if lq <= ROW_MAX_LQ and s <= ROW_MAX_KEYS:
         return "row"
-    if tile_shared_bytes(TILE_ROWS, s, dtype) > _MAX_SHARED_BYTES:
-        limit = max(n for n in range(_KEY_TILE, s, _KEY_TILE)
-                    if tile_shared_bytes(TILE_ROWS, n, dtype)
-                    <= _MAX_SHARED_BYTES)
-        raise ValueError(
-            f"the tile kernel keeps all logits of {TILE_ROWS} query "
-            f"rows in {_MAX_SHARED_BYTES} bytes of shared memory: at most "
-            f"{limit} keys, got {s}")
     return "tile"
 
 
@@ -215,10 +192,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"tile height")
         tile_rows = 0
     elif tile_rows is None:
-        tile_rows = TILE_ROWS
-    elif (tile_rows not in _TILE_ROWS_BUILT or tile_shared_bytes(
-            tile_rows, s, q.dtype) > _MAX_SHARED_BYTES):
-        raise ValueError(f"no tile kernel of {tile_rows} rows for {s} keys")
+        tile_rows = TILE_ROWS[q.dtype]
+    elif tile_rows not in _TILE_ROWS_BUILT:
+        raise ValueError(f"no tile kernel of {tile_rows} rows a block")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -255,7 +231,7 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor,
     """q (B, Lq, H, hd); k, v (B, S, H, hd) -> (B, Lq, H, hd).
 
     CUDA tensors go to a kernel (or raise); CPU tensors to the plain
-    version. ``tile_rows`` (32 or 64) overrides the tile kernel's own choice
+    version. ``tile_rows`` (64 or 128) overrides the tile kernel's own choice
     of query rows a block, for timing one against the other."""
     if q.is_cuda:
         return _launch(q, k, v, tile_rows)
