@@ -172,13 +172,27 @@ def apply_h(hmat: np.ndarray, xy: np.ndarray) -> np.ndarray:
 
 # ----------------------------------------------------------------- phases
 
+def _nvidia_smi(fields: str, fmt: str = "csv,noheader") -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_card() -> str:
-    line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    line = _nvidia_smi("name,power.limit")
     log(line)
     return line
+
+
+def exp_rate_per_s() -> float:
+    """exp evaluations a second the card can do at most: 16 a clock on each
+    SM's special-function units, at the highest SM clock nvidia-smi
+    reports."""
+    mhz = float(_nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[card] {sms} SMs, clocks.max.sm {mhz:.0f} MHz")
+    return sms * 16 * mhz * 1e6
 
 
 def phase_build(attention) -> float:
@@ -193,6 +207,7 @@ def phase_build(attention) -> float:
 def phase_kernel(attention) -> list:
     rows = []
     h, hd, s = 8, 32, 512
+    exp_rate = exp_rate_per_s()
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
         for label, b, lq in SHAPES:
@@ -218,22 +233,26 @@ def phase_kernel(attention) -> list:
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
             bound_ms, bound_by = attention_bound_ms(b, lq, s, h, hd, dtype)
             variant = attention.choose_kernel(lq, s, td)
-            # the tile kernel at each height it is built for, to show which
-            # one the wrapper should pick
-            by_rows = {} if variant == "row" else {
-                n: time_ms(lambda: attention.flash_cross_attention(
-                    q, k, v, tile_rows=n), iters) for n in (64, 128)}
+            # the tile kernel at each height it is built for (at Lq = 1 too,
+            # where the wrapper picks the row kernel), to show what the
+            # wrapper should pick
+            by_rows = {n: time_ms(lambda: attention.flash_cross_attention(
+                q, k, v, tile_rows=n), iters) for n in (64, 128)}
             rows.append(dict(shape=label, b=b, lq=lq, s=s, h=h, hd=hd,
                              dtype=dtype, variant=variant,
                              ms_by_tile_rows=by_rows,
+                             # not the bound: one exp a logit is a second
+                             # floor, which the softmax sets
+                             exp_floor_ms=b * h * lq * s / exp_rate * 1e3,
                              max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
             log(f"[kernel] {label:24s} B={b:<4d} Lq={lq:<5d} {dtype:8s} "
-                f"{variant:4s} err {err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-                f"  sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by})"
-                + "".join(f"  {n} rows {t:.4f} ms"
+                f"{variant:4s} err {err:.2e}  kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by})  "
+                f"exp floor {rows[-1]['exp_floor_ms']:.4f} ms"
+                + "".join(f"  tile of {n} rows {t:.4f} ms"
                           for n, t in by_rows.items()))
     return rows
 
@@ -348,8 +367,8 @@ def main() -> int:
     build_s = phase_build(attention)
     rows = phase_kernel(attention)
     forward = phase_forward(load_model, COTRConfig)
-    wall, launches, shape_counts, serve = phase_serve(attention, SparseEngine, ModelRunner,
-                                        load_model, COTRConfig)
+    wall, launches, shape_counts, serve = phase_serve(
+        attention, SparseEngine, ModelRunner, load_model, COTRConfig)
 
     main_row = next(r for r in rows if r["shape"] == "dense decode chunk"
                     and r["dtype"] == "float32")

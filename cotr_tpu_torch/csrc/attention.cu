@@ -17,7 +17,9 @@
 // q k^T, 64 for p v) and one exp. An SM does about 4,096 dense bf16
 // operations a clock but only 16 exp, so in bfloat16 the softmax, not the
 // two products, sets the pace by about 2x. mma.sync tiles are therefore
-// enough: wgmma and TMA would speed up the part that is not the limit.
+// enough there: wgmma and TMA would speed up the part that is not the limit.
+// In float32 the three TF32 products of the split cost six times the
+// tensor-core time of the bf16 product, and there the products set the pace.
 // What the design does:
 //   * a warp owns 16 query rows, 4 or 8 warps a block share the K and V
 //     tiles (64 keys) that stream through shared memory, fetched into

@@ -40,8 +40,11 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 32  # d_model / nheads of every COTR configuration in use
 
-#: the row kernel serves Lq up to this, the tile kernel above it
-ROW_MAX_LQ = 16
+#: the row kernel serves Lq up to this, the tile kernel above it. On the
+#: H100 at a batch of 256 the two cross at Lq = 4 in float32 and at Lq = 2 in
+#: bfloat16: a block of the tile kernel spends the same time on 1 row as on
+#: 64, the row kernel's time grows with every row
+ROW_MAX_LQ = 3
 #: most keys the row kernel takes (its logits stay under 48 KB a block);
 #: beyond, the tile kernel serves few rows too, the rest of its tile masked
 ROW_MAX_KEYS = 8192
@@ -186,13 +189,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention kernels take head dim {_HEAD_DIM}, "
                          f"got {hd}")
     kernel = choose_kernel(lq, s, q.dtype)
-    if kernel == "row":
-        if tile_rows is not None:
-            raise ValueError(f"Lq {lq} goes to the row kernel, which has no "
-                             f"tile height")
-        tile_rows = 0
-    elif tile_rows is None:
-        tile_rows = TILE_ROWS[q.dtype]
+    if tile_rows is None:
+        tile_rows = 0 if kernel == "row" else TILE_ROWS[q.dtype]
     elif tile_rows not in _TILE_ROWS_BUILT:
         raise ValueError(f"no tile kernel of {tile_rows} rows a block")
     if not (q.device == k.device == v.device):
@@ -231,8 +229,9 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor,
     """q (B, Lq, H, hd); k, v (B, S, H, hd) -> (B, Lq, H, hd).
 
     CUDA tensors go to a kernel (or raise); CPU tensors to the plain
-    version. ``tile_rows`` (64 or 128) overrides the tile kernel's own choice
-    of query rows a block, for timing one against the other."""
+    version. ``tile_rows`` (64 or 128) asks for the tile kernel with that
+    many query rows a block whatever Lq is, for timing one choice against
+    the other."""
     if q.is_cuda:
         return _launch(q, k, v, tile_rows)
     if q.device.type == "cpu":

@@ -114,7 +114,7 @@ _MANY_KEYS = 100_000  # beyond the row kernel's shared memory
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s", [128, 512, 520, _MANY_KEYS])
-@pytest.mark.parametrize("lq", [1, 2, 15, 16, 17, 64, 65, 600])
+@pytest.mark.parametrize("lq", [1, 2, 3, 4, 15, 16, 17, 64, 65, 600])
 def test_dispatch_rule(lq, s, dtype):
     """Few rows go to the row kernel as long as it can hold their logits;
     everything else to the tile kernel, which takes any S."""
@@ -135,8 +135,9 @@ def test_dispatch_refuses(lq, s, dtype):
 
 def test_dispatch_thresholds():
     f32 = torch.float32
-    assert attention.ROW_MAX_LQ == 16
-    assert attention.choose_kernel(16, attention.ROW_MAX_KEYS, f32) == "row"
+    assert attention.ROW_MAX_LQ == 3
+    assert attention.choose_kernel(1, 512, f32) == "row"  # refinement decode
+    assert attention.choose_kernel(3, attention.ROW_MAX_KEYS, f32) == "row"
     assert attention.choose_kernel(1, attention.ROW_MAX_KEYS + 1, f32) \
         == "tile"
-    assert attention.choose_kernel(17, 1, f32) == "tile"
+    assert attention.choose_kernel(4, 1, f32) == "tile"

@@ -60,7 +60,7 @@ def test_kernel_matches_plain(card, b, lq, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s", [128, 520])
-@pytest.mark.parametrize("lq", [2, 15, 16, 17, 64, 65])
+@pytest.mark.parametrize("lq", [2, 3, 4, 15, 16, 17, 64, 65])
 def test_both_sides_of_the_threshold(card, lq, s, dtype):
     """The row kernel up to ROW_MAX_LQ rows, the tile kernel above, at key
     counts that are and are not whole key tiles."""
@@ -77,9 +77,11 @@ def test_both_sides_of_the_threshold(card, lq, s, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tile_rows", [64, 128])
-def test_tile_heights_agree(card, tile_rows, dtype):
+@pytest.mark.parametrize("lq", [1, 600])
+def test_tile_heights_agree(card, lq, tile_rows, dtype):
+    """An explicit height asks for the tile kernel, for one row too."""
     td = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(x).to(card, td) for x in _inputs(2, 600))
+    q, k, v = (torch.from_numpy(x).to(card, td) for x in _inputs(2, lq))
     got = attention.flash_cross_attention(q, k, v, tile_rows=tile_rows)
     want = attention.flash_cross_attention_plain(q, k, v)
     np.testing.assert_allclose(got.float().cpu().numpy(),
