@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the attention kernels (csrc/attention.cu, nvcc, sm_90a) into
-   build/;
+2. build, both at once, into build/: the attention kernels
+   (csrc/attention.cu, nvcc, sm_90a) and the squad formation
+   (csrc/squads.cpp, the host C++ compiler); the native squad formation
+   must equal the numpy scan exactly on 10,000 generated tasks;
 3. the kernels (the tile kernel and the row kernel behind one wrapper) vs
-   their plain version on the card at the main path's shapes,
+   their plain version on the card at the main paths' shapes,
    float32 and bfloat16, with times beside the plain version's, one
    ``F.scaled_dot_product_attention`` call's (a yardstick only; the port
    never calls it) and the card's bound;
-4. the flagship model at full width (6+6 layers, float32) forward on the
+4. the squad engine's two windowed crops vs the full-image crop on the
+   card;
+5. the flagship model at full width (6+6 layers, float32) forward on the
    card vs the same port on the CPU (plain attention, same weights and
    inputs);
-5. serving: three generated image pairs (image B a known homography of
-   image A, one pair non-square) through ``SparseEngine(mode="tile")`` and
+6. serving, scan engine: three generated image pairs (image B a known
+   homography of image A, one pair non-square) through
+   ``SparseEngine(mode="tile")`` and
    ``cotr_corr_multiscale_with_cycle_consistency`` as in the README's quick
-   start, with the kernel's launch count read around the phase;
-6. one JSON line describing each kernel, then the device line last.
+   start;
+7. serving, squad engine: 2,000 queries on one pair through
+   ``FasterSparseEngine(mode="tile")``, beside the scan engine on the same
+   queries, which the squad engine must reproduce when every task is a
+   squad of its own;
+8. serving, many pairs: 8 pairs of 32 queries through
+   ``cotr_corr_multiscale_multipair``, beside 8 serial calls, then the
+   cycle-consistent multi-pair call on two of them;
+9. one JSON line describing each kernel, then the device line last.
+
+The kernel's launch counts are set to 0 just before each serving path and
+read just after it.
 
 It imports nothing of JAX or the JAX package. Without a card, or without
 the repository around it, it exits non-zero before printing any result.
@@ -28,6 +43,8 @@ the repository around it, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -40,6 +57,7 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "checkpoints", "flagship.npz")
+ZOOMS = list(np.linspace(0.5, 0.0625, 4))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W). The
@@ -66,7 +84,21 @@ SHAPES = [("encoder self-attention", 2, 512),
           ("refinement encoder", 256, 512),
           ("dense decode chunk", 4, 8192),
           ("refinement decode", 256, 1),
-          ("ragged query tile", 2, 600)]
+          ("ragged query tile", 2, 600),
+          ("squad encoder", 128, 512),
+          ("squad decode, member bucket", 128, 64),
+          ("squad decode, max_load + 1", 128, 257),
+          ("squad decode, small group", 8, 64)]
+
+# the windowed crops vs the full-image crop, float32 on a [0, 1] image: the
+# same sum with its zero terms left out, in another order
+CROP_TOL = 1e-6
+# two runs of the same refinement under another dispatch composition (the
+# squad engine with every task a squad of its own vs the scan engine; one
+# multi-pair call vs serial calls): the cuDNN batch changes, and
+# patch_box's floor turns that into whole-pixel box shifts for a few
+SAME_WITHIN_1PX = 0.95
+SAME_MEDIAN_PX = 0.1
 
 
 def log(msg: str) -> None:
@@ -195,13 +227,102 @@ def exp_rate_per_s() -> float:
     return sms * 16 * mhz * 1e6
 
 
-def phase_build(attention) -> float:
+def phase_build(attention, native, grouped) -> dict:
+    """Both sources at once, each by its own compiler; then the native
+    squad formation against the numpy scan."""
+    def timed(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = attention.build_library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(timed, mod.build_library)
+                for mod in (attention, native)]
+        built = [job.result() for job in jobs]
     attention._library()
+    native._library()
     seconds = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
-    return seconds
+    for path, secs in built:
+        log(f"[build] {os.path.relpath(path, ROOT)} in {secs:.1f} s")
+
+    # a 100 x 100 grid of tasks on a 768 x 1024 pair, targets a few pixels
+    # off, at the third zoom level's scale
+    t = 10_000
+    rng = np.random.RandomState(3)
+    gx, gy = np.meshgrid(np.linspace(8, 1016, 100), np.linspace(8, 760, 100))
+    loc_from = np.stack([gx.ravel(), gy.ravel()], axis=1) \
+        + rng.uniform(-2, 2, (t, 2))
+    loc_to = loc_from + rng.normal(0, 3, (t, 2))
+    active = np.ones(t, bool)
+    out, secs = {}, {}
+    for impl in ("native", "numpy"):
+        t1 = time.perf_counter()
+        out[impl] = grouped.form_squads(
+            loc_from, loc_to, active, 0.208, 0.208, (768, 1024), (768, 1024),
+            256, np.random.RandomState(4), impl=impl)
+        secs[impl] = time.perf_counter() - t1
+    if not (np.array_equal(out["native"][0], out["numpy"][0])
+            and np.array_equal(out["native"][1], out["numpy"][1])):
+        raise AssertionError("native form_squads differs from the numpy scan")
+    n_squads = len(out["native"][1])
+    log(f"[build] form_squads, {t} tasks -> {n_squads} squads: native "
+        f"{secs['native'] * 1e3:.2f} ms, numpy {secs['numpy'] * 1e3:.2f} ms, "
+        f"equal")
+    return dict(build_s=seconds, form_squads_tasks=t,
+                form_squads_squads=n_squads,
+                form_squads_native_ms=secs["native"] * 1e3,
+                form_squads_numpy_ms=secs["numpy"] * 1e3)
+
+
+def phase_crops(sampling) -> list:
+    """Both windowed crops against ``crop_and_resize_matmul`` on the card:
+    a 768 x 1024 image, patches of 384 (the first zoom level) and 48 (the
+    last), 128 boxes, out size 256."""
+    rng = np.random.RandomState(5)
+    h, w, g = 768, 1024, 128
+    img = torch.from_numpy(rng.rand(h, w, 3).astype(np.float32)).cuda()
+    stack = torch.stack([img, img.flip(0), img.flip(1)])
+    rows = []
+    for patch in (384, 48):
+        boxes = np.stack([rng.randint(0, w - patch + 1, g),
+                          rng.randint(0, h - patch + 1, g),
+                          np.full(g, patch), np.full(g, patch)],
+                         axis=1).astype(np.float32)
+        boxes[0, :2] = 0
+        boxes[1, :2] = (w - patch, h - patch)
+        idx = rng.randint(0, 3, g).astype(np.int32)
+        boxes_dev = torch.from_numpy(boxes).cuda()
+        full = sampling.crop_and_resize_matmul(img, boxes_dev, 256)
+        windowed = sampling.crop_and_resize_windowed(img, boxes, 256, patch)
+        # the indexed crop with a window wider than the boxes, as the
+        # multi-pair engine calls it
+        window = min(-(-patch // 64) * 64 + 64, h)
+        indexed = sampling.crop_and_resize_window_indexed(
+            stack, boxes, idx, 256, window)
+        want = torch.stack([sampling.crop_and_resize_matmul(
+            stack[i], boxes_dev[k:k + 1], 256)[0]
+            for k, i in enumerate(idx.tolist())])
+        errs = dict(windowed=(windowed - full).abs().max().item(),
+                    indexed=(indexed - want).abs().max().item())
+        for name, err in errs.items():
+            if not err <= CROP_TOL:
+                raise AssertionError(f"{name} crop at patch {patch}: max abs "
+                                     f"err {err} > {CROP_TOL}")
+        ms = dict(
+            full=time_ms(lambda: sampling.crop_and_resize_matmul(
+                img, boxes_dev, 256), 10),
+            windowed=time_ms(lambda: sampling.crop_and_resize_windowed(
+                img, boxes, 256, patch), 10),
+            indexed=time_ms(lambda: sampling.crop_and_resize_window_indexed(
+                stack, boxes, idx, 256, window), 10))
+        rows.append(dict(patch=patch, boxes=g, window=window,
+                         max_abs_err=errs, ms=ms))
+        log(f"[crops] patch {patch:3d}, {g} boxes of a {h}x{w} image: "
+            f"windowed err {errs['windowed']:.2e}, indexed (window {window}) "
+            f"err {errs['indexed']:.2e} (tol {CROP_TOL}); full-image "
+            f"{ms['full']:.3f} ms, windowed {ms['windowed']:.3f} ms, "
+            f"indexed {ms['indexed']:.3f} ms")
+    return rows
 
 
 def phase_kernel(attention) -> list:
@@ -288,32 +409,60 @@ def phase_forward(load_model, cfg_cls) -> dict:
     return dict(out_max_abs_err=out_err, memory_max_abs_err=mem_err)
 
 
-def phase_serve(attention, engine_cls, runner_cls, load_model,
-                cfg_cls) -> tuple:
-    rng = np.random.RandomState(1)
-    pairs = []
-    for (h, w), angle, scale, shift in [((768, 1024), 4.0, 1.05, (20, -12)),
-                                        ((512, 512), -3.0, 0.97, (-10, 8)),
-                                        ((480, 640), 2.0, 1.0, (16, 10))]:
-        img_a = procedural_texture(rng, h, w)
-        hmat = known_homography(h, w, angle, scale, shift)
-        pairs.append((img_a, warp_homography(img_a, hmat), hmat))
-    runner = runner_cls(load_model(FLAGSHIP, cfg_cls(), device="cuda"),
-                        device="cuda")
-    engine = engine_cls(runner, mode="tile")
-    zooms = list(np.linspace(0.5, 0.0625, 4))
+@contextlib.contextmanager
+def counted(attention, record: dict):
+    """Set the kernel's counts to 0, run the body, and fill ``record`` with
+    the wall time (the card drained at both ends), the launches and the
+    launches by shape."""
     torch.cuda.synchronize()
     attention.launches = 0
     attention.shape_counts.clear()
     t0 = time.perf_counter()
-    results = [engine.cotr_corr_multiscale_with_cycle_consistency(
-        a, b, zoom_ins=zooms, max_corrs=100) for a, b, _ in pairs]
+    yield record
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = attention.launches
-    shape_counts = [dict(b=b, lq=lq, s=s, dtype=dtype, launches=n)
-                    for (b, lq, s, dtype), n
-                    in sorted(attention.shape_counts.items())]
+    record["wall_s"] = time.perf_counter() - t0
+    record["launches"] = attention.launches
+    record["shape_counts"] = [
+        dict(b=b, lq=lq, s=s, dtype=dtype, launches=n)
+        for (b, lq, s, dtype), n in sorted(attention.shape_counts.items())]
+
+
+def log_counts(tag: str, record: dict) -> None:
+    for row in record["shape_counts"]:
+        log(f"[{tag}] launches at B={row['b']:<4d} Lq={row['lq']:<5d} "
+            f"S={row['s']:<4d} {row['dtype']}: {row['launches']}")
+    if record["launches"] < 1:
+        raise AssertionError(f"[{tag}] launched no attention kernel")
+
+
+def in_frame(corrs: np.ndarray, img_a, img_b) -> np.ndarray:
+    ha, wa = img_a.shape[:2]
+    hb, wb = img_b.shape[:2]
+    return ((corrs[:, 0] >= 0) & (corrs[:, 0] < wa)
+            & (corrs[:, 1] >= 0) & (corrs[:, 1] < ha)
+            & (corrs[:, 2] >= 0) & (corrs[:, 2] < wb)
+            & (corrs[:, 3] >= 0) & (corrs[:, 3] < hb))
+
+
+def make_pair(rng, hw, angle, scale, shift) -> tuple:
+    h, w = hw
+    img_a = procedural_texture(rng, h, w)
+    hmat = known_homography(h, w, angle, scale, shift)
+    return img_a, warp_homography(img_a, hmat), hmat
+
+
+def phase_serve(attention, engine_cls, runner) -> tuple:
+    rng = np.random.RandomState(1)
+    pairs = [make_pair(rng, hw, angle, scale, shift)
+             for hw, angle, scale, shift in [
+                 ((768, 1024), 4.0, 1.05, (20, -12)),
+                 ((512, 512), -3.0, 0.97, (-10, 8)),
+                 ((480, 640), 2.0, 1.0, (16, 10))]]
+    engine = engine_cls(runner, mode="tile")
+    with counted(attention, {}) as record:
+        results = [engine.cotr_corr_multiscale_with_cycle_consistency(
+            a, b, zoom_ins=ZOOMS, max_corrs=100) for a, b, _ in pairs]
+    wall, launches = record["wall_s"], record["launches"]
     summary = []
     for (img_a, img_b, hmat), corrs in zip(pairs, results):
         ha, wa = img_a.shape[:2]
@@ -322,11 +471,7 @@ def phase_serve(attention, engine_cls, runner_cls, load_model,
             raise AssertionError(f"pair {ha}x{wa}: {corrs.shape}")
         if not np.isfinite(corrs).all():
             raise AssertionError(f"pair {ha}x{wa}: non-finite output")
-        inside = ((corrs[:, 0] >= 0) & (corrs[:, 0] < wa)
-                  & (corrs[:, 1] >= 0) & (corrs[:, 1] < ha)
-                  & (corrs[:, 2] >= 0) & (corrs[:, 2] < wb)
-                  & (corrs[:, 3] >= 0) & (corrs[:, 3] < hb))
-        if not inside.all():
+        if not in_frame(corrs, img_a, img_b).all():
             raise AssertionError(f"pair {ha}x{wa}: correspondences out of "
                                  f"frame")
         err = np.linalg.norm(apply_h(hmat, corrs[:, :2]) - corrs[:, 2:],
@@ -339,12 +484,267 @@ def phase_serve(attention, engine_cls, runner_cls, load_model,
             f"{np.median(err):.2f} px, {np.mean(err <= 5.0):.0%} within 5 px")
     log(f"[serve] 3 pairs in {wall:.2f} s wall, attention kernel launches "
         f"{launches}")
-    for row in shape_counts:
-        log(f"[serve] launches at B={row['b']:<4d} Lq={row['lq']:<5d} "
-            f"S={row['s']:<4d} {row['dtype']}: {row['launches']}")
-    if launches < 1:
-        raise AssertionError("the serving path launched no attention kernel")
-    return wall, launches, shape_counts, summary
+    log_counts("serve", record)
+    record["pairs"] = summary
+    return record, pairs[0]
+
+
+def grid_queries(h: int, w: int, nx: int = 50, ny: int = 40) -> np.ndarray:
+    """An nx x ny grid of query points over the middle 80% of an image."""
+    gx, gy = np.meshgrid(np.linspace(0.1 * w, 0.9 * w, nx),
+                         np.linspace(0.1 * h, 0.9 * h, ny))
+    return np.stack([gx.ravel(), gy.ravel()], axis=1)
+
+
+class SquadLog:
+    """Counts the squads of every squad formation while it is installed
+    over ``grouped.form_squads`` (the engine looks the function up at each
+    call), so a run can tell real canvases from padded ones."""
+
+    def __init__(self, grouped):
+        self.grouped = grouped
+        self.squads = []
+
+    def __enter__(self):
+        self.original = self.grouped.form_squads
+
+        def logged(*args, **kwargs):
+            squad_of, pilots = self.original(*args, **kwargs)
+            self.squads.append(len(pilots))
+            return squad_of, pilots
+
+        self.grouped.form_squads = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.grouped.form_squads = self.original
+
+
+def _has_shape(record: dict, b: int, lq: int) -> bool:
+    return any(r["b"] == b and r["lq"] == lq and r["s"] == 512
+               for r in record["shape_counts"])
+
+
+def phase_grouped(attention, grouped, faster_cls, scan_cls, runner,
+                  pair) -> dict:
+    """2,000 queries of one 768 x 1024 pair through the squad engine with
+    its defaults, and through the scan engine for comparison.
+
+    Two things are held apart. The squad machinery (squad tables, windowed
+    crops, padded dispatches, the way back to pixels) must reproduce the
+    scan engine when every task is a squad of its own (``max_load=0``).
+    With the default grouping a member reuses its pilot's crops, which
+    costs accuracy by design; that cost is measured and printed, and the
+    gate on it is only that refinement still improves on the seeds."""
+    img_a, img_b, hmat = pair
+    h, w = img_a.shape[:2]
+    queries = grid_queries(h, w)
+    n = len(queries)
+    kw = dict(zoom_ins=ZOOMS, queries_a=queries, force=True, max_corrs=n)
+    truth = apply_h(hmat, queries)
+
+    # one small call each first, so neither timed call pays for the first
+    # use of its shapes (cuDNN's choice of algorithms, the allocator)
+    warm = dict(kw, queries_a=queries[::8], max_corrs=n // 8)
+    faster_cls(runner, mode="tile").cotr_corr_multiscale(img_a, img_b, **warm)
+    scan_cls(runner, mode="tile").cotr_corr_multiscale(img_a, img_b, **warm)
+
+    engine = faster_cls(runner, mode="tile")
+    engine.collect_diagnostics = True
+    with SquadLog(grouped) as squads, counted(attention, {}) as record:
+        got = engine.cotr_corr_multiscale(img_a, img_b, **kw)
+    scan = scan_cls(runner, mode="tile")
+    scan.collect_diagnostics = True
+    with counted(attention, {}) as scan_record:
+        want = scan.cotr_corr_multiscale(img_a, img_b, **kw)
+    with counted(attention, {}) as solo_record:
+        solo = faster_cls(runner, mode="tile", max_load=0
+                          ).cotr_corr_multiscale(img_a, img_b, **kw)
+
+    def by_level(eng):
+        return [float(np.median(np.linalg.norm(level - truth, axis=1)))
+                for level in eng.last_diag["history"]]
+
+    for name, corrs in (("squad", got), ("scan", want),
+                        ("squads of one", solo)):
+        if corrs.shape != (n, 4) or not np.isfinite(corrs).all():
+            raise AssertionError(f"{name} engine: shape {corrs.shape} or "
+                                 f"non-finite output")
+        if not in_frame(corrs, img_a, img_b).all():
+            raise AssertionError(f"{name} engine: correspondences out of "
+                                 f"frame")
+    err = np.linalg.norm(got[:, 2:] - truth, axis=1)
+    scan_err = np.linalg.norm(want[:, 2:] - truth, axis=1)
+    solo_diff = np.linalg.norm(solo[:, 2:] - want[:, 2:], axis=1)
+    stepper = engine._stepper
+    levels = len(ZOOMS)
+    real = int(sum(squads.squads))
+    padded_share = 1.0 - real / stepper.canvas_count
+    record.update(
+        queries=n, median_px=float(np.median(err)),
+        within_5px=float(np.mean(err <= 5.0)),
+        squads_per_level=squads.squads,
+        dispatch_count=stepper.dispatch_count,
+        canvas_count=stepper.canvas_count, squads=real,
+        padded_canvas_share=padded_share,
+        scan=dict(wall_s=scan_record["wall_s"],
+                  launches=scan_record["launches"],
+                  median_px=float(np.median(scan_err)),
+                  within_5px=float(np.mean(scan_err <= 5.0)),
+                  canvases=n * levels),
+        median_px_by_level=by_level(engine),
+        scan_median_px_by_level=by_level(scan),
+        squads_of_one=dict(
+            wall_s=solo_record["wall_s"],
+            within_1px_of_scan=float(np.mean(solo_diff <= 1.0)),
+            median_px_from_scan=float(np.median(solo_diff))))
+    log(f"[grouped] {n} queries, {h}x{w}: squad engine {record['wall_s']:.2f}"
+        f" s wall, median error vs the known homography "
+        f"{record['median_px']:.2f} px, {record['within_5px']:.0%} within "
+        f"5 px; scan engine {scan_record['wall_s']:.2f} s wall, median "
+        f"{record['scan']['median_px']:.2f} px, "
+        f"{record['scan']['within_5px']:.0%} within 5 px")
+    log(f"[grouped] median error by level, seeds first: squad engine "
+        f"{np.round(record['median_px_by_level'], 2).tolist()}, scan engine "
+        f"{np.round(record['scan_median_px_by_level'], 2).tolist()}")
+    log(f"[grouped] squads of one (max_load=0) vs the scan engine: "
+        f"{np.mean(solo_diff <= 1.0):.1%} within 1 px, median distance "
+        f"{np.median(solo_diff):.5f} px, {solo_record['wall_s']:.2f} s wall")
+    log(f"[grouped] squads per level {squads.squads}; dispatch_count "
+        f"{stepper.dispatch_count}, canvas_count {stepper.canvas_count} "
+        f"(scan: {n * levels} canvases), of which padding "
+        f"{stepper.canvas_count - real} ({padded_share:.1%})")
+    log_counts("grouped", record)
+    if not (np.mean(solo_diff <= 1.0) >= SAME_WITHIN_1PX
+            and np.median(solo_diff) <= SAME_MEDIAN_PX):
+        raise AssertionError("the squad engine with every task a squad of "
+                             "its own disagrees with the scan engine")
+    if not record["median_px"] < record["median_px_by_level"][0]:
+        raise AssertionError("the squad engine's refinement did not improve "
+                             "on its seeds")
+    if not stepper.canvas_count < n * levels:
+        raise AssertionError("no grouping: as many canvases as tasks x "
+                             "levels")
+    if not (_has_shape(record, 128, 512)
+            and (_has_shape(record, 128, 257) or _has_shape(record, 128, 64))):
+        raise AssertionError("the squad shapes are missing from the "
+                             "kernel's launches")
+    return record
+
+
+def phase_multipair(attention, grouped, faster_cls, runner) -> dict:
+    """8 pairs of 480 x 640 with 32 queries each: one multi-pair call
+    against 8 serial calls on engines seeded like the pairs; then the
+    cycle-consistent multi-pair call on the first two."""
+    rng = np.random.RandomState(6)
+    n_pairs, n_q = 8, 32
+    pairs, queries = [], []
+    for i in range(n_pairs):
+        pairs.append(make_pair(
+            rng, (480, 640), angle=rng.uniform(-4, 4),
+            scale=rng.uniform(0.97, 1.04), shift=rng.uniform(-12, 12, 2)))
+        queries.append(np.stack([rng.uniform(0.15 * 640, 0.85 * 640, n_q),
+                                 rng.uniform(0.15 * 480, 0.85 * 480, n_q)],
+                                axis=1))
+    images = [(a, b) for a, b, _ in pairs]
+    kw = dict(zoom_ins=ZOOMS, force=True, max_corrs=n_q)
+
+    def make(seed=0):
+        return faster_cls(runner, mode="tile", seed_stride=4, seed=seed)
+
+    # first use of the shapes, outside both timings
+    make().cotr_corr_multiscale_multipair(
+        images[:2], queries_list=queries[:2], pair_seeds=[0, 1], **kw)
+    make().cotr_corr_multiscale(*images[0], queries_a=queries[0], **kw)
+
+    engine = make()
+    with SquadLog(grouped) as squads, counted(attention, {}) as record:
+        multi = engine.cotr_corr_multiscale_multipair(
+            images, queries_list=queries, pair_seeds=list(range(n_pairs)),
+            **kw)
+    serial_canvases = 0
+    with SquadLog(grouped) as serial_squads, \
+            counted(attention, {}) as serial_record:
+        serial = []
+        for i, ((a, b), q) in enumerate(zip(images, queries)):
+            eng = make(seed=i)
+            serial.append(eng.cotr_corr_multiscale(a, b, queries_a=q, **kw))
+            serial_canvases += eng._stepper.canvas_count
+
+    per_pair = []
+    for i, (got, want, (a, b, hmat)) in enumerate(zip(multi, serial, pairs)):
+        if got.shape != (n_q, 4) or not np.isfinite(got).all():
+            raise AssertionError(f"multi-pair, pair {i}: shape {got.shape} "
+                                 f"or non-finite output")
+        if not in_frame(got, a, b).all():
+            raise AssertionError(f"multi-pair, pair {i}: out of frame")
+        diff = np.linalg.norm(got[:, 2:] - want[:, 2:], axis=1)
+        err = np.linalg.norm(apply_h(hmat, got[:, :2]) - got[:, 2:], axis=1)
+        per_pair.append(dict(within_1px_of_serial=float(np.mean(diff <= 1.0)),
+                             median_px_from_serial=float(np.median(diff)),
+                             median_px=float(np.median(err))))
+        log(f"[multipair] pair {i}: {np.mean(diff <= 1.0):.0%} within 1 px "
+            f"of the serial call, median distance {np.median(diff):.4f} px; "
+            f"median error vs the known homography {np.median(err):.2f} px")
+    stepper = engine._stepper
+    real = int(sum(squads.squads))
+    record.update(
+        pairs=n_pairs, queries_per_pair=n_q, per_pair=per_pair,
+        dispatch_count=stepper.dispatch_count,
+        canvas_count=stepper.canvas_count, squads=real,
+        padded_canvas_share=1.0 - real / stepper.canvas_count,
+        serial=dict(wall_s=serial_record["wall_s"],
+                    launches=serial_record["launches"],
+                    canvas_count=serial_canvases,
+                    squads=int(sum(serial_squads.squads)),
+                    padded_canvas_share=1.0 - sum(serial_squads.squads)
+                    / serial_canvases))
+    log(f"[multipair] {n_pairs} pairs x {n_q} queries: one call "
+        f"{record['wall_s']:.2f} s wall, {stepper.dispatch_count} dispatches,"
+        f" {stepper.canvas_count} canvases ({real} squads, "
+        f"{record['padded_canvas_share']:.1%} padding); {n_pairs} serial "
+        f"calls {serial_record['wall_s']:.2f} s wall, {serial_canvases} "
+        f"canvases ({record['serial']['padded_canvas_share']:.1%} padding)")
+    log_counts("multipair", record)
+    for i, row in enumerate(per_pair):
+        if not (row["within_1px_of_serial"] >= SAME_WITHIN_1PX
+                and row["median_px_from_serial"] <= SAME_MEDIAN_PX):
+            raise AssertionError(f"multi-pair, pair {i} disagrees with its "
+                                 f"serial call: {row}")
+
+    with counted(attention, {}) as cycle_record:
+        cycle = make().cotr_corr_multiscale_with_cycle_consistency_multipair(
+            images[:2], zoom_ins=ZOOMS, max_corrs=n_q,
+            queries_list=queries[:2], pair_seeds=[0, 1])
+    for i, (corrs, (a, b, hmat)) in enumerate(zip(cycle, pairs)):
+        if corrs.shape[0] < 1 or corrs.shape[1] != 4 \
+                or not np.isfinite(corrs).all():
+            raise AssertionError(f"cycle multi-pair, pair {i}: "
+                                 f"{corrs.shape} or non-finite output")
+        if not in_frame(corrs, a, b).all():
+            raise AssertionError(f"cycle multi-pair, pair {i}: out of frame")
+        err = np.linalg.norm(apply_h(hmat, corrs[:, :2]) - corrs[:, 2:],
+                             axis=1)
+        log(f"[multipair] cycle-consistent, pair {i}: {corrs.shape[0]} "
+            f"correspondences, median error {np.median(err):.2f} px")
+    log(f"[multipair] cycle-consistent call on 2 pairs: "
+        f"{cycle_record['wall_s']:.2f} s wall, {cycle_record['launches']} "
+        f"launches")
+    record["cycle"] = dict(wall_s=cycle_record["wall_s"],
+                           launches=cycle_record["launches"],
+                           shape_counts=cycle_record["shape_counts"],
+                           correspondences=[int(c.shape[0]) for c in cycle])
+    return record
+
+
+def merged_shape_counts(records) -> list:
+    total = {}
+    for record in records:
+        for row in record["shape_counts"]:
+            key = (row["b"], row["lq"], row["s"], row["dtype"])
+            total[key] = total.get(key, 0) + row["launches"]
+    return [dict(b=b, lq=lq, s=s, dtype=dtype, launches=n)
+            for (b, lq, s, dtype), n in sorted(total.items())]
 
 
 def main() -> int:
@@ -353,22 +753,39 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from cotr_tpu_torch import native
     from cotr_tpu_torch.config import COTRConfig
-    from cotr_tpu_torch.inference.engine import SparseEngine
+    from cotr_tpu_torch.inference import grouped
+    from cotr_tpu_torch.inference.engine import (FasterSparseEngine,
+                                                 SparseEngine)
     from cotr_tpu_torch.inference.runner import ModelRunner
     from cotr_tpu_torch.models.checkpoint_io import load_model
-    from cotr_tpu_torch.ops import attention
+    from cotr_tpu_torch.ops import attention, sampling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     card = phase_card()
-    build_s = phase_build(attention)
+    build = phase_build(attention, native, grouped)
     rows = phase_kernel(attention)
+    crops = phase_crops(sampling)
     forward = phase_forward(load_model, COTRConfig)
-    wall, launches, shape_counts, serve = phase_serve(
-        attention, SparseEngine, ModelRunner, load_model, COTRConfig)
+    runner = ModelRunner(load_model(FLAGSHIP, COTRConfig(), device="cuda"),
+                         device="cuda")
+    serve, big_pair = phase_serve(attention, SparseEngine, runner)
+    squad = phase_grouped(attention, grouped, FasterSparseEngine,
+                          SparseEngine, runner, big_pair)
+    multipair = phase_multipair(attention, grouped, FasterSparseEngine,
+                                runner)
+    # the serving paths' own runs; the comparison runs beside them (scan
+    # engine on the squad phase's queries, the serial calls) are left out
+    paths = {"scan engine, 3 pairs": serve,
+             "squad engine, 2,000 queries": squad,
+             "multi-pair, 8 pairs x 32 queries": multipair,
+             "cycle-consistent multi-pair, 2 pairs": multipair["cycle"]}
+    launches = sum(p["launches"] for p in paths.values())
+    shape_counts = merged_shape_counts(paths.values())
 
     main_row = next(r for r in rows if r["shape"] == "dense decode chunk"
                     and r["dtype"] == "float32")
@@ -377,6 +794,7 @@ def main() -> int:
         source="cotr_tpu_torch/csrc/attention.cu",
         replaces="cotr_tpu/ops/pallas_attention.py:70",
         launches=launches, shape_counts=shape_counts,
+        launches_by_path={k: p["launches"] for k, p in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in rows
                         if r["dtype"] == "float32"),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -386,10 +804,13 @@ def main() -> int:
         shapes=rows)]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, build_s=build_s, forward=forward,
-                       serve_wall_s=wall, serve=serve, kernels=kernels), f,
-                  indent=1)
-    log(f"[serve] wall {wall:.3f} s")
+        json.dump(dict(card=card, build=build, crops=crops, forward=forward,
+                       serve_wall_s=serve["wall_s"], serve=serve,
+                       squad=squad, multipair=multipair, kernels=kernels),
+                  f, indent=1)
+    log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
+        f"{squad['wall_s']:.3f} s; [multipair] wall "
+        f"{multipair['wall_s']:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,16 @@
-"""SparseEngine: the sparse correspondence API (counterpart of
-cotr_tpu/inference/engine.py's ``SparseEngine``).
+"""SparseEngine and FasterSparseEngine: the sparse correspondence API
+(counterpart of cotr_tpu/inference/engine.py).
 
 Same seeding rules, thresholds, filters and return conventions as the JAX
 engine: seeding is vectorized numpy over the dense-pass fields, and
 refinement advances all tasks through the zoom schedule in lockstep
 (inference/refine.py). Host randomness is ``np.random.RandomState(seed)``,
 so both packages draw the same seeds.
+
+``FasterSparseEngine`` refines through the squad machinery of
+inference/grouped.py instead, where queries that fall inside a pilot's patch
+window share the pilot's canvas encode, and adds the multi-pair entry
+points, which put the squads of many image pairs into shared device calls.
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ import torch
 from cotr_tpu_torch.inference.dense import (_canvases_for_jobs,
                                             dense_flow_many,
                                             to_square_patches)
+from cotr_tpu_torch.inference.grouped import (GroupedStepper,
+                                              refine_grouped,
+                                              refine_grouped_pairs)
 from cotr_tpu_torch.inference.refine import BatchRefiner
 from cotr_tpu_torch.inference.runner import ModelRunner
 from cotr_tpu_torch.ops.sampling import resize_pil_host
@@ -83,6 +91,13 @@ class SparseEngine:
             getattr(torch, getattr(cfg, "dtype", "float32"))
         self.refiner = BatchRefiner(runner, crop_dtype=self.crop_dtype)
         self.rng = np.random.RandomState(seed)
+        self.total_tasks = 0
+        # opt-in diagnostics: when True, each cotr_corr_multiscale call
+        # keeps its tasks' full zoom histories and the filters' verdicts in
+        # ``last_diag``, so an error tail can be told apart (seed miss, zoom
+        # divergence, filter miss)
+        self.collect_diagnostics = False
+        self.last_diag = None
         # zoom scale of cycle_select's reverse check (None = the schedule's
         # coarsest level); see _cycle_select
         self.cycle_zoom = None
@@ -124,11 +139,14 @@ class SparseEngine:
         return out
 
     def _seed_tasks(self, img_a, img_b, max_corrs, queries_a, force,
-                    dense=None):
+                    dense=None, rng=None):
         """Vectorized task generation. Returns (loc_from, loc_to,
         identifiers, area_a, area_b) for a->b refinements. ``dense`` passes
-        precomputed seed fields."""
-        rng = self.rng
+        precomputed seed fields; ``rng`` takes the place of the engine's
+        stream (a stream per pair keeps multi-pair runs equal to serial
+        ones)."""
+        if rng is None:
+            rng = self.rng
         corr_a, con_a, corr_b, con_b = dense if dense is not None \
             else self._dense_fields_many([(img_a, img_b)])[0]
         h_a, w_a = img_a.shape[:2]
@@ -207,6 +225,7 @@ class SparseEngine:
             if np.isnan(hist).any():
                 raise ValueError("NaN in refinement predictions")
             histories.append(hist)
+            self.total_tasks += hist.shape[0] * hist.shape[1]
         history = np.concatenate(histories, axis=1)  # (Z, T, 2)
         return np.concatenate([loc_to[None], history], axis=0)
 
@@ -303,7 +322,7 @@ class SparseEngine:
         # Mirrors a quirk of the JAX engine: cycle_zoom = 0 is falsy and so
         # treated as unset (the coarsest level is used instead).
         check = self.cycle_zoom if self.cycle_zoom else zoom_ins[0]
-        best_override = None
+        best_override, cyc = None, None
         if cycle_select == "rescue":
             # keep the converged answer where the filters pass; spend the
             # reverse check only on flagged queries
@@ -311,17 +330,32 @@ class SparseEngine:
                                         img_a.shape[:2], img_b.shape[:2])
             flagged = np.nonzero(~healthy)[0]
             best_override = history[-1].copy()
+            cyc = np.full((history.shape[0], len(loc_from)), np.nan)
             if len(flagged):
-                sel, _ = self._cycle_select(
+                sel, cyc_sub = self._cycle_select(
                     img_a, img_b, loc_from[flagged], history[:, flagged],
                     area_a, area_b, check)
                 best_override[flagged] = sel
+                cyc[:, flagged] = cyc_sub
         elif cycle_select:
-            best_override, _ = self._cycle_select(
+            best_override, cyc = self._cycle_select(
                 img_a, img_b, loc_from, history, area_a, area_b, check)
         corrs, idx = self._conclude(loc_from, history, ident,
                                     img_a.shape[:2], img_b.shape[:2], force,
                                     best_override=best_override)
+        if self.collect_diagnostics:
+            # what the std/border filters WOULD have kept (a force run skips
+            # them, so they are applied again with force=False)
+            _, kept = self._conclude(loc_from, history, ident,
+                                     img_a.shape[:2], img_b.shape[:2], False)
+            self.last_diag = {
+                "loc_from": loc_from.copy(), "ident": ident.copy(),
+                "history": history.copy(),  # (1 seed + Z levels, T, 2)
+                "area_a": area_a, "area_b": area_b,
+                "kept_by_filters": np.isin(ident, kept)}
+            if cycle_select:
+                self.last_diag["cycle_err"] = cyc      # (C, T)
+                self.last_diag["selected"] = best_override.copy()
         corrs, idx = corrs[:max_corrs], idx[:max_corrs]
         return (corrs, idx) if return_idx else corrs
 
@@ -353,14 +387,8 @@ class SparseEngine:
             return_idx=True, _dense=dense_b)
         if corr_b.shape[0] == 0:
             raise RuntimeError("backward pass produced no correspondences")
-        cycle_errors = np.linalg.norm(corr_f[idx_b][:, :2] - corr_b[:, 2:],
-                                      axis=1)
-        order = np.argsort(cycle_errors)
-        out = [corr_f[idx_b][order][:max_corrs]]
-        if return_idx:
-            out.append(idx_f[idx_b][order][:max_corrs])
-        if return_cycle_error:
-            out.append(cycle_errors[order][:max_corrs])
+        out = _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b, max_corrs,
+                                   return_idx, return_cycle_error)
         return out[0] if len(out) == 1 else out
 
     # ----------------------------------------------------------- extra paths
@@ -425,4 +453,273 @@ class SparseEngine:
                          np.arange(preds.shape[1])]
             results.append(np.concatenate(
                 [np.asarray(queries_a, np.float64), best[:, :2]], axis=1))
+        return results
+
+
+def _to_float01(img: np.ndarray) -> np.ndarray:
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    img = img.astype(np.float32)
+    return img / 255.0 if img.max() > 2.0 else img
+
+
+def _pair_streams(pair_seeds, n: int, rng: np.random.RandomState) -> list:
+    """One RandomState per pair from ints or live streams; without seeds,
+    drawn from ``rng``."""
+    if pair_seeds is None:
+        pair_seeds = [int(rng.randint(2 ** 31 - 1)) for _ in range(n)]
+    return [s if isinstance(s, np.random.RandomState)
+            else np.random.RandomState(s) for s in pair_seeds]
+
+
+def _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b, max_corrs,
+                         return_idx, return_cycle_error) -> list:
+    """Forward correspondences that survived the backward pass, ordered by
+    the distance between the query and where the backward pass lands."""
+    cycle_errors = np.linalg.norm(corr_f[idx_b][:, :2] - corr_b[:, 2:],
+                                  axis=1)
+    order = np.argsort(cycle_errors)
+    out = [corr_f[idx_b][order][:max_corrs]]
+    if return_idx:
+        out.append(idx_f[idx_b][order][:max_corrs])
+    if return_cycle_error:
+        out.append(cycle_errors[order][:max_corrs])
+    return out
+
+
+class FasterSparseEngine(SparseEngine):
+    """Squad-grouped engine: queries that fall inside a pilot task's patch
+    window share the pilot's crops, so one canvas encode serves up to
+    ``max_load`` queries. Members reuse the *pilot's* crop, which trades a
+    little spatial accuracy for throughput.
+
+    Parameters beyond SparseEngine's
+    --------------------------------
+    max_load: most members that join a pilot (a squad holds max_load + 1).
+    safe_area: membership window as a fraction of the pilot's patch, in
+        (0, 1]. 0.5 is the reference; larger groups more queries per encode
+        at the price of accuracy near the window's edges.
+    group_cap, group_bucket, member_bucket, member_ladder: padding and
+        chunking of the device calls (inference/grouped.py). group_cap
+        bounds the canvases per call; with max_load in the thousands it must
+        drop so the (group_cap, max_load + 1, d) decoder buffers fit.
+    image_bucket: multi-pair image stacks are padded to multiples of this.
+    squads_impl: "native" (the C++ squad formation, built at first use) or
+        "numpy".
+    """
+
+    def __init__(self, runner: ModelRunner, batch_size: int = 256,
+                 mode: str = "stretching", seed: int = 0, max_load: int = 256,
+                 crop_dtype=None, safe_area: float = 0.5,
+                 group_cap: int = 128, group_bucket: int = 8,
+                 member_bucket: int = 64, member_ladder: bool = False,
+                 seed_stride: int = 1, image_bucket: int = 256,
+                 squads_impl: str = "native"):
+        super().__init__(runner, batch_size, mode, seed,
+                         crop_dtype=crop_dtype, seed_stride=seed_stride)
+        # above 1.0 members would leave the pilot's patch (queries outside
+        # the canvas); at or below 0 grouping means nothing
+        if not 0.0 < safe_area <= 1.0:
+            raise ValueError(f"safe_area must be in (0, 1], got {safe_area}")
+        if squads_impl not in ("native", "numpy"):
+            raise ValueError(f"squads_impl must be 'native' or 'numpy', got "
+                             f"{squads_impl!r}")
+        self.max_load = max_load
+        self.safe_area = safe_area
+        self.group_cap = group_cap
+        self.group_bucket = group_bucket
+        self.member_bucket = member_bucket
+        self.member_ladder = member_ladder
+        self.image_bucket = image_bucket
+        self.squads_impl = squads_impl
+        self._stepper = GroupedStepper(runner, crop_dtype=self.crop_dtype)
+
+    @classmethod
+    def from_config(cls, runner: ModelRunner, cfg, **kw):
+        """Build from an InferenceConfig."""
+        return cls(runner, batch_size=cfg.batch_size, mode=cfg.mode,
+                   max_load=cfg.max_load, **kw)
+
+    def _grouping(self) -> dict:
+        return dict(max_load=self.max_load, safe_area=self.safe_area,
+                    group_cap=self.group_cap, group_bucket=self.group_bucket,
+                    member_bucket=self.member_bucket,
+                    member_ladder=self.member_ladder,
+                    squads_impl=self.squads_impl)
+
+    def _refine_all(self, img_a, img_b, loc_from, loc_to, area_a, area_b,
+                    zoom_ins, converge_iters):
+        s_from, s_to = relative_scales(area_a, area_b)
+        dev_a = self.refiner.prepare_image(img_a)
+        dev_b = self.refiner.prepare_image(img_b)
+        history = refine_grouped(
+            self.runner, self._stepper, dev_a, img_a.shape[:2], dev_b,
+            img_b.shape[:2], np.asarray(loc_from, np.float64),
+            np.asarray(loc_to, np.float64), s_from, s_to, zoom_ins, self.rng,
+            converge_iters=converge_iters, **self._grouping())
+        self.total_tasks += history.shape[0] * history.shape[1]
+        return np.concatenate([np.asarray(loc_to)[None], history], axis=0)
+
+    # ------------------------------------------------------- multi-pair API
+
+    def _stack_images(self, imgs) -> torch.Tensor:
+        """Pad N images to one common shape, multiples of ``image_bucket``,
+        and move them to the device as ONE (N, Hp, Wp, 3) [0, 1] stack
+        (uint8 crosses as uint8 and converts there)."""
+        bucket = self.image_bucket
+        hp = max(-(-im.shape[0] // bucket) * bucket for im in imgs)
+        wp = max(-(-im.shape[1] // bucket) * bucket for im in imgs)
+        all_uint8 = all(im.dtype == np.uint8 for im in imgs)
+        stack = np.zeros((len(imgs), hp, wp, 3),
+                         np.uint8 if all_uint8 else np.float32)
+        for i, im in enumerate(imgs):
+            stack[i, :im.shape[0], :im.shape[1]] = \
+                im if all_uint8 else _to_float01(im)
+        dev = torch.from_numpy(stack).to(self.runner.device).float()
+        if all_uint8:
+            dev = dev / 255.0
+        return dev
+
+    def cotr_corr_multiscale_multipair(
+            self, pairs, zoom_ins: Sequence[float] = (1.0,),
+            converge_iters: int = 1, max_corrs: int = 1000,
+            queries_list=None, force: bool = False, areas_list=None,
+            return_idx: bool = False, pair_seeds=None):
+        """ONE call refines N image pairs with shared device dispatches: the
+        dense seed pass batches every pair's canvases and the refinement
+        squads carry a pair index (refine_grouped_pairs), so modest per-pair
+        workloads fill the canvas-encode batch.
+
+        pairs: [(img_a, img_b)] * N. ``queries_list`` / ``areas_list``:
+        per-pair analogs of ``queries_a`` / ``areas``. ``max_corrs``: a
+        scalar or one value per pair. ``pair_seeds``: per-pair seeds (ints,
+        or live RandomState streams for callers that chain multipair
+        calls); results match N serial ``cotr_corr_multiscale`` calls on
+        engines built with ``seed=pair_seeds[i]``, within the float
+        tolerance of the changed dispatch composition.
+
+        Returns a list of per-pair corrs (max_corrs, 4), or (corrs, idx)
+        tuples with ``return_idx``."""
+        n = len(pairs)
+        if n == 0:
+            return []
+        pairs = [(np.asarray(a), np.asarray(b)) for a, b in pairs]
+        if queries_list is None:
+            queries_list = [None] * n
+        queries_list = [None if q is None
+                        else np.asarray(q, np.float64).copy()
+                        for q in queries_list]
+        max_corrs_list = list(max_corrs) if np.ndim(max_corrs) else \
+            [int(max_corrs)] * n
+        rngs = _pair_streams(pair_seeds, n, self.rng)
+
+        # ---- seed (batched dense pass unless the scales are known)
+        if areas_list is not None:
+            if any(q is None for q in queries_list) or not force:
+                raise ValueError("areas_list needs queries for every pair "
+                                 "and force=True")
+            # ALL pairs' patch canvases share one batched corr_base pass
+            corrs_all = self.corr_base_many(
+                [(a, b, q) for (a, b), q in zip(pairs, queries_list)])
+            seeds = [(corr[:, :2], corr[:, 2:], np.arange(len(corr)),
+                      float(ar[0]), float(ar[1]))
+                     for corr, ar in zip(corrs_all, areas_list)]
+        else:
+            dense = self._dense_fields_many(pairs)
+            seeds = [self._seed_tasks(a, b, max_corrs_list[i], q, force,
+                                      dense=dense[i], rng=rngs[i])
+                     for i, ((a, b), q) in enumerate(zip(pairs,
+                                                         queries_list))]
+
+        imgs_a_dev = self._stack_images([a for a, _ in pairs])
+        imgs_b_dev = self._stack_images([b for _, b in pairs])
+
+        pair_states = []
+        for i, (lf, lt, ident, area_a, area_b) in enumerate(seeds):
+            s_from, s_to = relative_scales(area_a, area_b)
+            pair_states.append(dict(
+                hw_a=pairs[i][0].shape[:2], hw_b=pairs[i][1].shape[:2],
+                s_from=s_from, s_to=s_to,
+                loc_from=np.asarray(lf, np.float64),
+                loc_to=np.asarray(lt, np.float64), rng=rngs[i]))
+
+        hists = refine_grouped_pairs(
+            self._stepper, imgs_a_dev, imgs_b_dev, pair_states, zoom_ins,
+            converge_iters=converge_iters, **self._grouping())
+
+        results = []
+        for i, (lf, lt, ident, _, _) in enumerate(seeds):
+            if len(lf) == 0:
+                empty = np.zeros((0, 4))
+                results.append((empty, np.zeros(0, int)) if return_idx
+                               else empty)
+                continue
+            if np.isnan(hists[i]).any():
+                raise ValueError("NaN in refinement predictions")
+            self.total_tasks += hists[i].shape[0] * hists[i].shape[1]
+            history = np.concatenate(
+                [np.asarray(lt, np.float64)[None], hists[i]], axis=0)
+            corrs, idx = self._conclude(
+                np.asarray(lf, np.float64), history, ident,
+                pairs[i][0].shape[:2], pairs[i][1].shape[:2], force)
+            corrs, idx = corrs[:max_corrs_list[i]], idx[:max_corrs_list[i]]
+            results.append((corrs, idx) if return_idx else corrs)
+        return results
+
+    def cotr_corr_multiscale_with_cycle_consistency_multipair(
+            self, pairs, zoom_ins: Sequence[float] = (1.0,),
+            converge_iters: int = 1, max_corrs: int = 1000,
+            queries_list=None, return_idx: bool = False,
+            return_cycle_error: bool = False, pair_seeds=None):
+        """Bidirectional cycle-ranked matching over MANY pairs: all N
+        forward (a->b) jobs share device dispatches, then all N backward
+        (b->a) jobs do. Per-pair results match serial
+        ``cotr_corr_multiscale_with_cycle_consistency`` calls on engines
+        seeded ``pair_seeds[i]``."""
+        extraction_rate = 0.3
+        n = len(pairs)
+        pairs = [(np.asarray(a), np.asarray(b)) for a, b in pairs]
+        if queries_list is None:
+            queries_list = [None] * n
+        # live streams: each pair's forward seeding and refinement and then
+        # its backward ones must consume ONE stream in serial order
+        rngs = _pair_streams(pair_seeds, n, self.rng)
+
+        temp_max = []
+        q_fwd = []
+        for q in queries_list:
+            tm = int(max_corrs / extraction_rate)
+            if q is not None:
+                q = np.asarray(q, np.float64).copy()
+                tm = min(tm, q.shape[0])
+            temp_max.append(tm)
+            q_fwd.append(q)
+
+        fwd = self.cotr_corr_multiscale_multipair(
+            pairs, zoom_ins=zoom_ins, converge_iters=converge_iters,
+            max_corrs=temp_max, queries_list=q_fwd, return_idx=True,
+            pair_seeds=rngs)
+        for i, (corr_f, _) in enumerate(fwd):
+            if corr_f.shape[0] == 0:
+                raise RuntimeError(
+                    f"forward pass produced no correspondences (pair {i})")
+
+        bwd = self.cotr_corr_multiscale_multipair(
+            [(b, a) for a, b in pairs], zoom_ins=zoom_ins,
+            converge_iters=converge_iters,
+            max_corrs=[corr_f.shape[0] for corr_f, _ in fwd],
+            queries_list=[corr_f[:, 2:].copy() for corr_f, _ in fwd],
+            return_idx=True, pair_seeds=rngs)
+
+        results = []
+        for i in range(n):
+            corr_f, idx_f = fwd[i]
+            corr_b, idx_b = bwd[i]
+            if corr_b.shape[0] == 0:
+                raise RuntimeError(
+                    f"backward pass produced no correspondences (pair {i})")
+            out = _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b,
+                                       max_corrs, return_idx,
+                                       return_cycle_error)
+            results.append(out[0] if len(out) == 1 else tuple(out))
         return results

@@ -10,12 +10,17 @@ cotr_tpu/ops/sampling.py), images in HWC layout.
 * :func:`crop_and_resize_matmul`: PIL-exact anti-aliased crop-and-resize as
   two batched matrix products with per-box triangle-filter matrices
   (:func:`pil_axis_weights`).
+* :func:`crop_and_resize_windowed` and
+  :func:`crop_and_resize_window_indexed`: the same crop for the squad
+  engine, which first gathers a small window around each box and so
+  multiplies over the window instead of the whole image.
 * :func:`resize_pil`: PIL's BILINEAR resize of a whole image without PIL,
   for the field resizes where the JAX package calls PIL on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import numpy as np
@@ -76,6 +81,23 @@ def pil_axis_weights(starts: torch.Tensor, sizes: torch.Tensor,
     return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-8)
 
 
+@contextlib.contextmanager
+def _exact_products(compute_dtype):
+    """float32 crop products run without TF32 whatever the process-wide
+    setting is (``load_model`` turns TF32 off for a float32 model, but the
+    crops must not depend on who loaded what): the JAX package asks for
+    ``Precision.HIGHEST`` here."""
+    if compute_dtype != torch.float32:
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def crop_and_resize_matmul(image: torch.Tensor, boxes: torch.Tensor,
                            out_size: int,
                            compute_dtype=torch.float32) -> torch.Tensor:
@@ -88,8 +110,125 @@ def crop_and_resize_matmul(image: torch.Tensor, boxes: torch.Tensor,
     wy = pil_axis_weights(boxes[:, 1], boxes[:, 3], h, out_size)  # (G,o,H)
     wx = pil_axis_weights(boxes[:, 0], boxes[:, 2], w, out_size)  # (G,o,W)
     img = image.to(compute_dtype)
-    tmp = torch.einsum("giy,yxc->gixc", wy.to(compute_dtype), img)
-    out = torch.einsum("gjx,gixc->gijc", wx.to(compute_dtype), tmp)
+    with _exact_products(compute_dtype):
+        tmp = torch.einsum("giy,yxc->gixc", wy.to(compute_dtype), img)
+        out = torch.einsum("gjx,gixc->gijc", wx.to(compute_dtype), tmp)
+    return out.float()
+
+
+def _host_boxes(boxes) -> np.ndarray:
+    """(G, 4) boxes as a host float32 array: the windowed crops check the
+    range and compute their gather indices on the host, where the engine
+    builds the boxes, so no device value is waited for."""
+    boxes = np.asarray(boxes, np.float32)
+    if boxes.ndim != 2 or boxes.shape[1] != 4:
+        raise ValueError(f"boxes must be (G, 4), got {boxes.shape}")
+    return boxes
+
+
+def _check_inside(boxes: np.ndarray, h: int, w: int) -> None:
+    if len(boxes) and not (
+            (boxes[:, 0] >= 0).all() and (boxes[:, 1] >= 0).all()
+            and (boxes[:, 0] + boxes[:, 2] <= w).all()
+            and (boxes[:, 1] + boxes[:, 3] <= h).all()):
+        raise ValueError(f"a crop box leaves the {h}x{w} image")
+
+
+def _gather_windows(img: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                    size: int, idx: torch.Tensor = None) -> torch.Tensor:
+    """(G, size, size, C) windows with corners (x0, y0) (int64, on the
+    image's device) out of an (H, W, C) image or, with ``idx``, out of image
+    idx[g] of a (P, H, W, C) stack: one gather, no loop over G."""
+    offs = torch.arange(size, device=img.device)
+    ys = (y0[:, None] + offs)[:, :, None]  # (G, S, 1)
+    xs = (x0[:, None] + offs)[:, None, :]  # (G, 1, S)
+    if idx is None:
+        return img[ys, xs]
+    return img[idx[:, None, None], ys, xs]
+
+
+def crop_and_resize_windowed(image: torch.Tensor, boxes, out_size: int,
+                             patch: int,
+                             compute_dtype=torch.float32) -> torch.Tensor:
+    """PIL-exact crop-and-resize for boxes that share one patch size.
+
+    Every box of one squad dispatch has the same side, so each patch is
+    gathered first and resampled with one shared (out, patch) weight
+    matrix: G*out*patch^2*C products in place of
+    :func:`crop_and_resize_matmul`'s G*out*H*W*C. The filter's support is
+    clipped to the crop in both, so the result is the same sum with its
+    zero terms left out (within 1e-6 in float32 on [0, 1] images; the order
+    of summation differs).
+
+    image (H, W, C); boxes (G, 4) integer-valued (x0, y0, w, h) with
+    w == h == patch, a host array. The JAX package's ``dynamic_slice`` silently moves a window that
+    would leave the image back inside; here such a box raises ValueError.
+    Returns (G, out_size, out_size, C) float32."""
+    host = _host_boxes(boxes)
+    h, w = image.shape[0], image.shape[1]
+    if len(host) and not ((host[:, 2:] == patch).all()):
+        raise ValueError(f"every box must be {patch} px square")
+    _check_inside(host, h, w)
+    dev = image.device
+    corners = torch.from_numpy(host[:, :2].astype(np.int64)).to(dev)
+    img = image.to(compute_dtype)
+    wins = _gather_windows(img, corners[:, 0], corners[:, 1], patch)
+    one = torch.tensor([float(patch)], device=dev)
+    wgt = pil_axis_weights(torch.zeros_like(one), one, patch,
+                           out_size)[0].to(compute_dtype)  # (out, S)
+    with _exact_products(compute_dtype):
+        tmp = torch.einsum("iy,gyxc->gixc", wgt, wins)
+        out = torch.einsum("jx,gixc->gijc", wgt, tmp)
+    return out.float()
+
+
+def crop_and_resize_window_indexed(images: torch.Tensor, boxes, idx,
+                                   out_size: int, window: int,
+                                   compute_dtype=torch.float32
+                                   ) -> torch.Tensor:
+    """PIL-exact crop-and-resize from a STACK of images, with an image
+    index and an integral size for every box, the sizes bounded by
+    ``window``: the crop of the multi-pair squad engine, where squads of
+    different image pairs share one dispatch.
+
+    Each box gathers a (window, window) region of its own image, moved
+    inside the image where the box sits near the far edge, and is resampled
+    by per-box triangle-filter matrices clipped to the true box, as in
+    :func:`crop_and_resize_matmul` (the window's other columns have weight
+    zero).
+
+    images (P, H, W, C); boxes (G, 4) integer-valued (x0, y0, w, h) with
+    w, h <= window <= min(H, W); idx (G,) image index of each box; both
+    host arrays. A box outside
+    its image, a size above ``window`` or an index outside the stack raises
+    ValueError. Returns (G, out_size, out_size, C) float32."""
+    host = _host_boxes(boxes)
+    idx = np.asarray(idx, np.int64)
+    p, h, w = images.shape[0], images.shape[1], images.shape[2]
+    if window > min(h, w):
+        raise ValueError(f"window {window} exceeds the {h}x{w} images")
+    if len(host) and (host[:, 2:] > window).any():
+        raise ValueError(f"a crop box exceeds the {window}-px window")
+    if idx.shape != (len(host),) or (len(idx) and not (
+            (idx >= 0).all() and (idx < p).all())):
+        raise ValueError(f"idx must be (G,) image indices below {p}")
+    _check_inside(host, h, w)
+    dev = images.device
+    # window corner: moved so the window stays inside the image; the true
+    # box then starts at (bx - wx0, by - wy0) within the window
+    wx0 = np.clip(host[:, 0], 0.0, float(w - window))
+    wy0 = np.clip(host[:, 1], 0.0, float(h - window))
+    table = torch.from_numpy(np.stack(
+        [wx0, wy0, host[:, 0] - wx0, host[:, 1] - wy0, host[:, 2],
+         host[:, 3], idx.astype(np.float32)], axis=1)).to(dev)
+    img = images.to(compute_dtype)
+    wins = _gather_windows(img, table[:, 0].long(), table[:, 1].long(),
+                           window, table[:, 6].long())
+    wy = pil_axis_weights(table[:, 3], table[:, 5], window, out_size)
+    wx = pil_axis_weights(table[:, 2], table[:, 4], window, out_size)
+    with _exact_products(compute_dtype):
+        tmp = torch.einsum("giy,gyxc->gixc", wy.to(compute_dtype), wins)
+        out = torch.einsum("gjx,gixc->gijc", wx.to(compute_dtype), tmp)
     return out.float()
 
 

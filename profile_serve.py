@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on one NVIDIA card.
 
-    python3 profile_serve.py
+    python3 profile_serve.py [--engine scan|squad]
 
-Serves chip_smoke.py's generated image pairs with the flagship weights
-(float32, ``SparseEngine(mode="tile")``,
-``cotr_corr_multiscale_with_cycle_consistency`` at zoom
-linspace(0.5, 0.0625, 4), 100 correspondences) after one warm-up pair, and
-reports:
+``--engine scan`` (the default) serves chip_smoke.py's three generated
+image pairs with the flagship weights (float32, ``SparseEngine(mode=
+"tile")``, ``cotr_corr_multiscale_with_cycle_consistency`` at zoom
+linspace(0.5, 0.0625, 4), 100 correspondences) after one warm-up pair.
+``--engine squad`` serves chip_smoke.py's squad workload instead: its
+50 x 40 grid of 2,000 forced queries on the 768 x 1024 pair through
+``FasterSparseEngine(mode="tile")`` with its defaults, after one warm-up
+call. Either way it reports:
 
 * the wall time of the dense seed passes alone and of the whole call;
 * device time by class of the aten op that launched each kernel (and the
@@ -15,11 +18,12 @@ reports:
   whole call, and the device's idle share (1 - busy time / wall time).
 
 Prints one JSON line last; writes the profiler's table to
-chiprun_out/profile_serve.txt.
+chiprun_out/profile_serve_<engine>.txt.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -54,11 +58,16 @@ def _class_of(op_name: str) -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--engine", choices=("scan", "squad"),
+                        default="scan")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
     from cotr_tpu_torch.config import COTRConfig
-    from cotr_tpu_torch.inference.engine import SparseEngine
+    from cotr_tpu_torch.inference.engine import (FasterSparseEngine,
+                                                 SparseEngine)
     from cotr_tpu_torch.inference.runner import ModelRunner
     from cotr_tpu_torch.models.checkpoint_io import load_model
 
@@ -74,20 +83,34 @@ def main() -> int:
         pairs.append((img_a, chip_smoke.warp_homography(img_a, hmat)))
     runner = ModelRunner(load_model(chip_smoke.FLAGSHIP, COTRConfig(),
                                     device="cuda"), device="cuda")
-    engine = SparseEngine(runner, mode="tile")
-    zooms = list(np.linspace(0.5, 0.0625, 4))
+    zooms = chip_smoke.ZOOMS
+    if args.engine == "scan":
+        engine = SparseEngine(runner, mode="tile")
+        dense_jobs = [[(a, b), (b, a)] for a, b in pairs]
 
-    def serve():
-        return [engine.cotr_corr_multiscale_with_cycle_consistency(
-            a, b, zoom_ins=zooms, max_corrs=100) for a, b in pairs]
+        def serve():
+            return [engine.cotr_corr_multiscale_with_cycle_consistency(
+                a, b, zoom_ins=zooms, max_corrs=100) for a, b in pairs]
 
-    engine.cotr_corr_multiscale_with_cycle_consistency(
-        *pairs[-1], zoom_ins=zooms, max_corrs=100)  # warm-up
+        engine.cotr_corr_multiscale_with_cycle_consistency(
+            *pairs[-1], zoom_ins=zooms, max_corrs=100)  # warm-up
+    else:
+        engine = FasterSparseEngine(runner, mode="tile")
+        pairs = pairs[:1]
+        dense_jobs = [pairs]
+        queries = chip_smoke.grid_queries(*pairs[0][0].shape[:2])
+
+        def serve():
+            return [engine.cotr_corr_multiscale(
+                a, b, zoom_ins=zooms, queries_a=queries, force=True,
+                max_corrs=len(queries)) for a, b in pairs]
+
+        serve()  # warm-up
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    for a, b in pairs:
-        engine._dense_fields_many([(a, b), (b, a)])
+    for job in dense_jobs:
+        engine._dense_fields_many(job)
     torch.cuda.synchronize()
     dense_s = time.perf_counter() - t0
 
@@ -122,11 +145,12 @@ def main() -> int:
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_serve.txt"),
-              "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out",
+                           f"profile_serve_{args.engine}.txt"), "w") as f:
         f.write(table)
     print(table[:6000], flush=True)
-    result = dict(card=card, pairs=len(pairs), dense_seed_s=dense_s,
+    result = dict(card=card, engine=args.engine, pairs=len(pairs),
+                  dense_seed_s=dense_s,
                   serve_wall_s=wall_s, profiled_wall_s=prof_wall_s,
                   device_busy_s=busy_us / 1e6,
                   device_s_unattributed=busy_us / 1e6 - sum(by_class.values()),

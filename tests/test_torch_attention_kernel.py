@@ -42,7 +42,11 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,lq", [(2, 512), (256, 512), (4, 8192), (256, 1),
-                                  (2, 600)])
+                                  (2, 600),
+                                  # the squad engine's: encoder, both member
+                                  # paddings (257 leaves a tile of one row),
+                                  # the small group
+                                  (128, 512), (128, 64), (128, 257), (8, 64)])
 def test_kernel_matches_plain(card, b, lq, dtype):
     td = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(card, td) for x in _inputs(b, lq))

@@ -67,11 +67,15 @@ def _identity_decode(canvas, queries, xp, where, mean_abs):
 
 
 class TorchIdentityRunner:
-    """ModelRunner-shaped identity stub for the port (CPU)."""
+    """ModelRunner-shaped identity stub for the port (CPU). ``model`` has
+    the ``encode`` / ``decode`` pair the squad stepper calls."""
 
     device = torch.device("cpu")
     decode_chunk = 16384
-    model = SimpleNamespace(cfg=None)
+
+    def __init__(self):
+        self.model = SimpleNamespace(cfg=None, encode=self.encode,
+                                     decode=self._decode)
 
     def as_tensor(self, x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)

@@ -33,3 +33,64 @@ def test_port_imports_nothing_of_jax_pil_or_cotr_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 15, proc.stdout
+
+
+#: the squad engine's slice: each imports alone, with the JAX side blocked
+#: at the import system, so a lazy import inside a function would show too
+#: when the function runs
+_SQUAD_MODULES = ["cotr_tpu_torch.native",
+                  "cotr_tpu_torch.inference.grouped",
+                  "cotr_tpu_torch.inference.triangulate",
+                  "cotr_tpu_torch.inference.engine",
+                  "cotr_tpu_torch.inference",
+                  "cotr_tpu_torch.ops.sampling"]
+
+_BLOCKED_PROBE = """
+import importlib, importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "cotr_tpu"):
+            raise ImportError("blocked for this test: " + name)
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+mod = importlib.import_module(sys.argv[1])
+if sys.argv[1] == "cotr_tpu_torch.inference.grouped":
+    # run the host side once, native squad formation included
+    t = 50
+    rng = np.random.RandomState(0)
+    loc = np.stack([rng.uniform(0, 300, t), rng.uniform(0, 200, t)], 1)
+    sq, pilots = mod.form_squads(loc, loc, np.ones(t, bool), 0.25, 0.25,
+                                 (200, 300), (200, 300), 8,
+                                 np.random.RandomState(1))
+    assert (sq >= 0).all() and len(pilots) >= 1
+if sys.argv[1] == "cotr_tpu_torch.inference.triangulate":
+    corr = np.random.RandomState(0).uniform(0, 16, (12, 4))
+    assert mod.triangulate_corr(corr, (16, 16), (16, 16)).shape == (16, 16, 2)
+if sys.argv[1] == "cotr_tpu_torch.inference":
+    assert mod.FasterSparseEngine.__mro__[1] is mod.SparseEngine
+print("imported", sys.argv[1])
+"""
+
+
+def _run_blocked(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    site_dirs = [p for p in sys.path if p.endswith("-packages")]
+    env["PYTHONPATH"] = os.pathsep.join([_ROOT] + site_dirs)
+    return subprocess.run([sys.executable, "-S", "-c", _BLOCKED_PROBE,
+                           module], env=env, cwd=_ROOT, capture_output=True,
+                          text=True, timeout=180)
+
+
+def test_squad_modules_import_with_jax_flax_and_cotr_tpu_blocked():
+    for module in _SQUAD_MODULES:
+        proc = _run_blocked(module)
+        assert proc.returncode == 0, module + "\n" + proc.stdout + proc.stderr
+        assert f"imported {module}" in proc.stdout
+
+
+def test_the_block_really_blocks():
+    proc = _run_blocked("cotr_tpu.inference.grouped")
+    assert proc.returncode != 0
+    assert "blocked for this test" in proc.stderr

@@ -101,3 +101,103 @@ def test_uint8_resize_within_one_level_of_pil():
     got = sampling.resize_pil_host(img, (300, 300))
     assert got.dtype == np.uint8
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+# ------------------------------------------------------- the windowed crops
+
+#: float32 on [0, 1] images: the windowed product sums fewer terms in
+#: another order; bfloat16 rounds operands and both results to bf16
+_CROP_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+
+
+def _windowed_case():
+    rng = np.random.RandomState(8)
+    img = rng.rand(300, 400, 3).astype(np.float32)
+    boxes = np.array([[0, 0, 96, 96], [50, 20, 96, 96], [304, 204, 96, 96],
+                      [117, 93, 96, 96]], np.float32)
+    return img, boxes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_crop_and_resize_windowed_matches_jax(dtype):
+    img, boxes = _windowed_case()
+    want = np.asarray(jsamp.crop_and_resize_windowed(
+        jnp.asarray(img), jnp.asarray(boxes), 256, 96,
+        compute_dtype=getattr(jnp, dtype)))
+    got = sampling.crop_and_resize_windowed(
+        torch.from_numpy(img), boxes, 256, 96,
+        compute_dtype=getattr(torch, dtype))
+    assert got.dtype == torch.float32 and got.shape == (4, 256, 256, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=_CROP_TOL[dtype])
+    # and against the port's own full-image crop
+    full = sampling.crop_and_resize_matmul(
+        torch.from_numpy(img), torch.from_numpy(boxes), 256,
+        compute_dtype=getattr(torch, dtype))
+    np.testing.assert_allclose(got.numpy(), full.numpy(),
+                               atol=_CROP_TOL[dtype])
+
+
+def _indexed_case():
+    rng = np.random.RandomState(9)
+    imgs = rng.rand(3, 256, 320, 3).astype(np.float32)
+    # sizes differ by box; the last two sit at the far edges, where the
+    # window is moved back inside the image
+    boxes = np.array([[0, 0, 64, 64], [40, 30, 100, 100], [200, 130, 120, 120],
+                      [192, 128, 128, 128], [310, 246, 10, 10]], np.float32)
+    idx = np.array([0, 2, 1, 2, 0], np.int32)
+    return imgs, boxes, idx
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_crop_and_resize_window_indexed_matches_jax(dtype):
+    imgs, boxes, idx = _indexed_case()
+    want = np.asarray(jsamp.crop_and_resize_window_indexed(
+        jnp.asarray(imgs), jnp.asarray(boxes), jnp.asarray(idx), 256, 128,
+        compute_dtype=getattr(jnp, dtype)))
+    got = sampling.crop_and_resize_window_indexed(
+        torch.from_numpy(imgs), boxes, idx, 256, 128,
+        compute_dtype=getattr(torch, dtype))
+    assert got.dtype == torch.float32 and got.shape == (5, 256, 256, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=_CROP_TOL[dtype])
+    for g in range(len(boxes)):
+        full = sampling.crop_and_resize_matmul(
+            torch.from_numpy(imgs[idx[g]]), torch.from_numpy(boxes[g:g + 1]),
+            256, compute_dtype=getattr(torch, dtype))
+        np.testing.assert_allclose(got[g].numpy(), full[0].numpy(),
+                                   atol=_CROP_TOL[dtype])
+
+
+def test_windowed_crops_reject_misshapen_boxes():
+    img, boxes = _windowed_case()
+    with pytest.raises(ValueError):
+        sampling.crop_and_resize_windowed(torch.from_numpy(img), boxes[0],
+                                          64, 96)
+    with pytest.raises(ValueError):
+        sampling.crop_and_resize_window_indexed(
+            torch.from_numpy(img)[None], boxes, np.zeros(3, np.int32), 64,
+            128)
+
+
+@pytest.mark.parametrize("box", [[-1, 0, 96, 96], [0, -2, 96, 96],
+                                 [305, 0, 96, 96], [0, 205, 96, 96],
+                                 [0, 0, 64, 64]])
+def test_windowed_crop_raises_outside_the_image(box):
+    """``dynamic_slice`` would move such a window back inside silently (and
+    a box of another size would be read at the wrong scale)."""
+    img, _ = _windowed_case()
+    with pytest.raises(ValueError):
+        sampling.crop_and_resize_windowed(
+            torch.from_numpy(img), np.array([box], np.float32), 256, 96)
+
+
+@pytest.mark.parametrize("box,idx,window", [
+    ([-1, 0, 64, 64], 0, 128), ([300, 0, 64, 64], 0, 128),
+    ([0, 200, 64, 64], 0, 128), ([0, 0, 130, 130], 0, 128),
+    ([0, 0, 64, 64], 3, 128), ([0, 0, 64, 64], -1, 128),
+    ([0, 0, 64, 64], 0, 320)])
+def test_indexed_crop_raises_outside_the_stack(box, idx, window):
+    imgs, _, _ = _indexed_case()
+    with pytest.raises(ValueError):
+        sampling.crop_and_resize_window_indexed(
+            torch.from_numpy(imgs), np.array([box], np.float32),
+            np.array([idx], np.int32), 256, window)
