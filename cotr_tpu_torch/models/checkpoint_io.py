@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package and the port, both ways.
 
 ``checkpoints/flagship.npz`` (written by cotr_tpu's ``save_params_npz``)
 holds flat ``params/a/b/c`` keys plus ``__bf16_keys__``, a JSON list of the
@@ -10,15 +10,19 @@ state_dict key by its path, with these layout rules:
 * dense ``kernel`` (in, out) -> ``weight`` (out, in);
 * LayerNorm ``scale`` -> ``weight``;
 * FrozenBN ``weight``/``bias``/``running_mean``/``running_var`` as they are.
+
+``params_to_flax`` and ``save_params_npz`` go the other way, so weights the
+port trained are served by either package.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from cotr_tpu_torch.config import COTRConfig
 from cotr_tpu_torch.models.cotr import COTRModel, build_model
@@ -67,6 +71,56 @@ def params_from_flax(flat: Mapping[str, np.ndarray]
             leaf = "weight"
         out[".".join(parts[:-1] + [leaf])] = torch.tensor(v)
     return out
+
+
+def _is_frozen_bn(module_name: str) -> bool:
+    return module_name.startswith("bn") or module_name.endswith("_bn")
+
+
+def params_to_flax(state: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, np.ndarray]:
+    """The port's state_dict -> flat Flax params (``params/a/b/c`` keys,
+    float32 numpy arrays): the inverse of :func:`params_from_flax`."""
+    out = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        v = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and not _is_frozen_bn(parts[-2]):
+            if v.ndim == 4:
+                v, leaf = v.transpose(2, 3, 1, 0), "kernel"  # OIHW -> HWIO
+            elif v.ndim == 2:
+                v, leaf = v.T, "kernel"  # (out, in) -> (in, out)
+            elif v.ndim == 1:
+                leaf = "scale"  # LayerNorm
+            else:
+                raise ValueError(f"{key}: weight of rank {v.ndim}")
+        out["/".join(["params"] + parts[:-1] + [leaf])] = \
+            np.ascontiguousarray(v)
+    return out
+
+
+def save_params_npz(model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]],
+                    path: str, dtype: str = "bfloat16") -> None:
+    """Write the weights as one compressed ``.npz`` in the JAX package's
+    format (its ``save_params_npz``): flat Flax keys, float arrays as
+    bfloat16 bit patterns in uint16 (rounded to nearest even) with their keys
+    listed under ``__bf16_keys__``, or as float32 with ``dtype="float32"``.
+    Both packages' loaders read it."""
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype must be bfloat16 or float32, got {dtype}")
+    state = (model_or_state.state_dict()
+             if isinstance(model_or_state, nn.Module) else model_or_state)
+    store, bf16_keys = {}, []
+    for k, v in params_to_flax(state).items():
+        if dtype == "bfloat16":
+            bits = torch.from_numpy(v).to(torch.bfloat16).view(torch.int16)
+            store[k] = bits.numpy().view(np.uint16)
+            bf16_keys.append(k)
+        else:
+            store[k] = v
+    store["__bf16_keys__"] = np.asarray(json.dumps(bf16_keys))
+    np.savez_compressed(path, **store)
 
 
 def load_state(model: COTRModel, flat: Mapping[str, np.ndarray]) -> None:

@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from cotr_tpu_torch.utils.device import constant
+
 
 def sine_bases(depth: int, sine_type: str) -> np.ndarray:
     if sine_type == "lin_sine":
@@ -31,8 +33,8 @@ def sine_bases(depth: int, sine_type: str) -> np.ndarray:
 def nerf_positional_encoding(coords: torch.Tensor, depth: int,
                              sine_type: str = "lin_sine") -> torch.Tensor:
     """Expand (..., D) coordinates to (..., 2 * depth * D)."""
-    bases = torch.as_tensor(sine_bases(depth, sine_type), dtype=coords.dtype,
-                            device=coords.device)
+    bases = constant(tuple(sine_bases(depth, sine_type).tolist()),
+                     coords.dtype, coords.device)
     # angle[..., b, d] = base_b * pi * coord_d
     ang = coords[..., None, :] * (bases[:, None] * math.pi)
     flat = (*coords.shape[:-1], depth * coords.shape[-1])

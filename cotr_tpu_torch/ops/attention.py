@@ -1,11 +1,14 @@
-"""Fused cross-attention: the hand-written Hopper kernels and their plain
-version.
+"""Attention: the hand-written Hopper kernels, their plain version, and the
+differentiable einsum path.
 
 Counterpart of ``cotr_tpu/ops/pallas_attention.py`` (``flash_cross_attention``
-over the Pallas body ``_attn_kernel``). Every attention of the model goes
-through :func:`flash_cross_attention`: the encoder self-attention (Lq = S =
-512), the dense decode (Lq = 8,192 per chunk) and the refinement decode
-(Lq = 1).
+over the Pallas body ``_attn_kernel``) and of the einsum branch of
+``cotr_tpu/models/transformer.py``. Every forward-only attention of the model
+without mask or dropout goes through :func:`flash_cross_attention`: the
+encoder self-attention (Lq = S = 512), the dense decode (Lq = 8,192 per
+chunk), the refinement decode (Lq = 1) and the evaluation step. A forward
+that needs a gradient, a key-padding mask or dropout takes
+:func:`einsum_attention`; ``MultiHeadAttention.forward`` chooses.
 
 * On a CUDA tensor it launches one of the two kernels of
   ``csrc/attention.cu``, built with ``nvcc`` for ``sm_90a`` into ``build/``
@@ -16,6 +19,10 @@ through :func:`flash_cross_attention`: the encoder self-attention (Lq = S =
   layout neither takes raises; nothing falls back.
 * On a CPU tensor it runs :func:`flash_cross_attention_plain`, the same
   arithmetic written with einsum and softmax.
+
+* :func:`einsum_attention` is plain PyTorch on either device. It is not the
+  kernels' plain version: its logits are formed in the compute dtype, as the
+  JAX package's einsum branch forms them, where the kernels keep them fp32.
 
 ``launches`` counts kernel launches and ``shape_counts`` counts them by
 shape, so a run can show that its path went through the kernels.
@@ -32,8 +39,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
+
+from cotr_tpu_torch.ops.dropout import dropout
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "attention.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -133,6 +143,28 @@ def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_padding_mask: Optional[torch.Tensor] = None,
+                     dropout_p: float = 0.0, training: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """q (B, Lq, H, hd); k, v (B, S, H, hd) -> (B, Lq, H, hd), differentiable.
+
+    Logits of the scaled queries in the compute dtype; ``key_padding_mask``
+    (B, S), True for a padded key, filled with the dtype's most negative
+    finite value (a row masked whole comes out uniform, not NaN); softmax in
+    float32, cast back; dropout on the probabilities; product with v."""
+    _check(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :],
+                                    torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    probs = dropout(probs, dropout_p, training, generator)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def _round_tf32(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
     as ``cvt.rna.tf32.f32`` rounds."""
@@ -205,8 +237,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{vec} elements")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         # like the TPU kernel, these have no backward
-        raise RuntimeError("the attention kernels are forward-only; run them "
-                           "under torch.no_grad() or inference_mode()")
+        raise RuntimeError("the attention kernels are forward-only: call "
+                           "einsum_attention where a gradient is wanted, or "
+                           "run them under torch.no_grad() or "
+                           "inference_mode()")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])

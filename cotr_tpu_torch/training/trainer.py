@@ -1,0 +1,211 @@
+"""Training loop: iteration-driven epochs, periodic validation, checkpoint
+and resume, TensorBoard metrics (counterpart of
+cotr_tpu/training/trainer.py).
+
+* epochs run until ``max_iter`` steps are taken;
+* every ``valid_iter`` steps: validate, save the rolling ``checkpoint``, and
+  every 10*valid_iter an archive ``ckpt_{step}``;
+* resume restores step, weights and optimizer state, the skip's counters
+  included; each step's dropout generator is seeded from (seed, step), so a
+  resumed run repeats an unbroken one;
+* TensorBoard (optional): train loss and cycle loss scalars, pred/target
+  histograms, validation loss and correspondence renderings.
+
+Checkpoints are ``torch.save`` files of ``{version, step, params,
+opt_state}``, all tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from cotr_tpu_torch.config import (COTRConfig, TrainConfig, compact_name,
+                                   save_params_json)
+from cotr_tpu_torch.models.cotr import COTRModel
+from cotr_tpu_torch.training.train_step import (TrainState, batch_canvas,
+                                                create_train_state,
+                                                make_eval_step,
+                                                make_train_step)
+from cotr_tpu_torch.utils.device import resolve_device
+
+#: batch keys the steps consume, across all layouts (host canvas, synthetic
+#: device warp, device-synthesized supervision; see train_step.batch_views)
+KEEP_KEYS = ("image", "queries", "targets", "crop", "h_mat", "photo",
+             "cand", "qdepth", "qscale", "kinv_nn", "c2w_nn", "proj_q",
+             "flip", "skey")
+
+
+def _to_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+class Trainer:
+    #: checkpoint payload layout version; bumped on structural changes so a
+    #: stale restore fails loudly instead of misassigning state
+    CKPT_VERSION = 1
+
+    def __init__(self, model: COTRModel, model_cfg: COTRConfig,
+                 train_cfg: TrainConfig,
+                 train_loader: Callable[[], Iterable[Dict[str, np.ndarray]]],
+                 val_loader: Optional[Callable[[], Iterable]] = None,
+                 out_dir: Optional[str] = None, use_tensorboard: bool = True,
+                 device="cuda"):
+        self.model = model
+        self.model_cfg = model_cfg
+        self.cfg = train_cfg
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.device = resolve_device(device)
+        self.out_dir = out_dir or os.path.join(
+            train_cfg.out_dir, compact_name(model_cfg, train_cfg))
+        os.makedirs(self.out_dir, exist_ok=True)
+        save_params_json(os.path.join(self.out_dir, "params.json"),
+                         model_cfg, train_cfg)
+
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass  # no writer installed: train without TensorBoard
+            else:
+                self._tb = SummaryWriter(os.path.join(self.out_dir, "tb"))
+
+        self._ckpt_dir = os.path.join(self.out_dir, "checkpoints")
+        os.makedirs(self._ckpt_dir, exist_ok=True)
+
+        self.state: Optional[TrainState] = None
+        self._train_step = None
+        self._eval_step = None
+
+    # ------------------------------------------------------------- lifecycle
+
+    def initialize(self, seed: Optional[int] = 0):
+        """Step 0 on the trainer's device. The weights are drawn afresh from
+        ``seed``; with ``seed=None`` the model keeps the weights it holds."""
+        generator = None if seed is None else \
+            torch.Generator().manual_seed(seed)
+        self.state = create_train_state(self.model, self.cfg, generator,
+                                        self.device)
+        self._train_step = make_train_step(self.cfg)
+        self._eval_step = make_eval_step(self.cfg)
+
+    def _batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(batch[k]).to(self.device)
+                for k in KEEP_KEYS if k in batch}
+
+    # ----------------------------------------------------------- checkpoints
+
+    def _path(self, tag: str) -> str:
+        return os.path.join(self._ckpt_dir, f"{tag}.pt")
+
+    def save_checkpoint(self, tag: str = "checkpoint"):
+        payload = {
+            "version": self.CKPT_VERSION,
+            "step": self.state.step,
+            "params": _to_cpu(self.state.model.state_dict()),
+            "opt_state": _to_cpu(self.state.optimizer.state_dict()),
+        }
+        tmp = self._path(tag) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self._path(tag))
+
+    def load_checkpoint(self, tag: str = "checkpoint") -> bool:
+        path = self._path(tag)
+        if not os.path.exists(path):
+            return False
+        restored = torch.load(path, map_location="cpu", weights_only=True)
+        version = int(restored.get("version", -1))
+        if version != self.CKPT_VERSION:
+            raise ValueError(
+                f"checkpoint at {path} has layout version {version}, "
+                f"this trainer writes {self.CKPT_VERSION}; refusing a "
+                "structurally ambiguous restore")
+        model, optimizer = self.state.model, self.state.optimizer
+        model.load_state_dict(restored["params"], strict=True)
+        optimizer.load_state_dict(restored["opt_state"])
+        self.state = TrainState(int(restored["step"]), model, optimizer)
+        return True
+
+    # -------------------------------------------------------------- training
+
+    def validate(self) -> float:
+        if self.val_loader is None:
+            return float("nan")
+        losses = []
+        first = None
+        for batch in self.val_loader():
+            batch = self._batch(batch)
+            out = self._eval_step(self.state.model, batch)
+            losses.append(float(out["val_loss"]))
+            if first is None and "queries" in batch and "targets" in batch:
+                first = (batch, out["pred"])
+        val = float(np.mean(losses)) if losses else float("nan")
+        if self._tb is not None and np.isfinite(val):
+            self._tb.add_scalar("loss/val", val, self.state.step)
+            if first is not None:
+                # ground-truth and predicted correspondence renderings
+                from cotr_tpu_torch.training.tb import draw_corrs
+
+                batch, pred = first
+                img = batch_canvas({k: v[:4] for k, v in batch.items()})
+                q = batch["queries"][:4]
+                gt = torch.cat([q, batch["targets"][:4]], dim=-1)
+                pd = torch.cat([q, pred[:4]], dim=-1)
+                img, gt, pd = (t.cpu().numpy() for t in (img, gt, pd))
+                self._tb.add_image("image/gt_corrs",
+                                   draw_corrs(img, gt, (0, 255, 0))[0],
+                                   self.state.step, dataformats="HWC")
+                self._tb.add_image("image/pred_corrs",
+                                   draw_corrs(img, pd, (255, 0, 0))[0],
+                                   self.state.step, dataformats="HWC")
+        return val
+
+    def train(self, resume: bool = False) -> TrainState:
+        if self.state is None:
+            raise RuntimeError("call initialize() first")
+        if resume:
+            self.load_checkpoint()
+        generator = torch.Generator(device=self.device)
+        step = self.state.step
+        t0 = time.time()
+        while step < self.cfg.max_iter:
+            for batch in self.train_loader():
+                if step >= self.cfg.max_iter:
+                    break
+                # seeded from (seed, step): a resumed run draws the masks an
+                # unbroken one would
+                generator.manual_seed((self.cfg.seed + 1) * 1_000_003 + step)
+                self.state, metrics = self._train_step(
+                    self.state, self._batch(batch), generator)
+                step += 1
+                if (self._tb is not None and self.cfg.tb_iter > 0
+                        and step % self.cfg.tb_iter == 0):
+                    self._tb.add_scalar("loss/train", float(metrics["loss"]),
+                                        step)
+                    self._tb.add_scalar("loss/cycle",
+                                        float(metrics["cycle_loss"]), step)
+                    self._tb.add_histogram("distribution/pred",
+                                           metrics["pred"].cpu().numpy(),
+                                           step)
+                    self._tb.add_histogram("distribution/target",
+                                           metrics["target"].cpu().numpy(),
+                                           step)
+                if step % self.cfg.valid_iter == 0:
+                    val = self.validate()
+                    self.save_checkpoint()
+                    if step % (10 * self.cfg.valid_iter) == 0:
+                        self.save_checkpoint(f"ckpt_{step}")
+                    dt = time.time() - t0
+                    print(f"iter {step}: loss={float(metrics['loss']):.5f} "
+                          f"val={val:.5f} ({dt:.0f}s)")
+        return self.state

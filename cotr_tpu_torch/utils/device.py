@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -15,3 +17,14 @@ def resolve_device(device="cuda") -> torch.device:
             "a CUDA device was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def constant(values: tuple, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A small read-only constant on ``device``, uploaded once for each
+    (values, dtype, device) and shared after that: a train step that built it
+    anew would make the host wait for a copy every time. Made outside
+    inference mode, so autograd may save it whoever asked first."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

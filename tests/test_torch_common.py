@@ -142,3 +142,32 @@ def test_small_models_share_weights():
     s = np.asarray(flat["params/transformer/decoder_norm/scale"])
     np.testing.assert_array_equal(
         state["transformer.decoder_norm.weight"].numpy(), s)
+
+
+def grads_to_port(jax_grads) -> dict:
+    """A JAX gradient (or parameter) tree under the port's names and
+    layouts, as numpy arrays."""
+    from cotr_tpu_torch.models.checkpoint_io import params_from_flax
+
+    flat = _flatten(jax.device_get(jax_grads))
+    return {k: v.numpy() for k, v in params_from_flax(flat).items()}
+
+
+def assert_tree_close(got: dict, want: dict, rel_of_max: float, what: str,
+                      floor_of_tree_max: float = 1e-4):
+    """Every array of ``got`` within ``rel_of_max`` of the largest magnitude
+    of its counterpart in ``want``. A tensor whose true value is zero and
+    whose content is rounding noise (the gradient of a key projection's
+    bias: a softmax does not see a constant added to all its logits) is held
+    to the same share of ``floor_of_tree_max`` times the largest magnitude
+    in the whole tree instead."""
+    assert set(got) == set(want), sorted(set(got) ^ set(want))[:8]
+    floor = floor_of_tree_max * max(float(np.abs(v).max())
+                                    for v in want.values())
+    worst = ("", 0.0)
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), floor, 1e-30)
+        err = float(np.abs(np.asarray(got[k]) - want[k]).max()) / scale
+        if err > worst[1]:
+            worst = (k, err)
+    assert worst[1] <= rel_of_max, f"{what}: {worst[0]} off by {worst[1]:.3e}"

@@ -1,5 +1,5 @@
-"""The port imports no JAX, Flax, PIL, ml_dtypes or cotr_tpu module: the
-machine with the card has none of them."""
+"""The port imports no JAX, Flax, optax, orbax, PIL, ml_dtypes or cotr_tpu
+module: the machine with the card has none of them."""
 
 import os
 import subprocess
@@ -14,7 +14,8 @@ names = [m.name for m in pkgutil.walk_packages(cotr_tpu_torch.__path__,
                                                  "cotr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "flax", "PIL", "ml_dtypes", "cotr_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "ml_dtypes",
+          "cotr_tpu")
 found = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), found)
 sys.exit(1 if found else 0)
@@ -32,7 +33,7 @@ def test_port_imports_nothing_of_jax_pil_or_cotr_tpu():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15, proc.stdout
+    assert n_modules >= 27, proc.stdout
 
 
 #: the squad engine's slice: each imports alone, with the JAX side blocked
@@ -50,7 +51,8 @@ import importlib, importlib.abc, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "cotr_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                  "cotr_tpu"):
             raise ImportError("blocked for this test: " + name)
 
 sys.meta_path.insert(0, Block())
@@ -70,6 +72,20 @@ if sys.argv[1] == "cotr_tpu_torch.inference.triangulate":
     assert mod.triangulate_corr(corr, (16, 16), (16, 16)).shape == (16, 16, 2)
 if sys.argv[1] == "cotr_tpu_torch.inference":
     assert mod.FasterSparseEngine.__mro__[1] is mod.SparseEngine
+if sys.argv[1] == "cotr_tpu_torch.training.optim":
+    import torch
+    w = torch.nn.Parameter(torch.ones(3))
+    opt = mod.Optimizer(mod.TrainConfig(), {"transformer.w": w})
+    w.grad = torch.ones(3)
+    opt.step()
+    assert int(opt.count) == 1 and float(w[0]) < 1.0
+if sys.argv[1] == "cotr_tpu_torch.training.loss":
+    import torch
+    assert float(mod.masked_mse(torch.ones(1, 2, 2),
+                                torch.zeros(1, 2, dtype=torch.bool))) == 0.0
+if sys.argv[1] == "cotr_tpu_torch.models.torch_convert":
+    assert mod._reference_key("transformer.dec0.cross_attn.k_proj.bias") == (
+        "transformer.decoder.layers.0.multihead_attn.in_proj_bias", 1)
 print("imported", sys.argv[1])
 """
 
@@ -85,6 +101,24 @@ def _run_blocked(module):
 
 def test_squad_modules_import_with_jax_flax_and_cotr_tpu_blocked():
     for module in _SQUAD_MODULES:
+        proc = _run_blocked(module)
+        assert proc.returncode == 0, module + "\n" + proc.stdout + proc.stderr
+        assert f"imported {module}" in proc.stdout
+
+
+#: the training slice, blocked the same way
+_TRAINING_MODULES = ["cotr_tpu_torch.training",
+                     "cotr_tpu_torch.training.loss",
+                     "cotr_tpu_torch.training.optim",
+                     "cotr_tpu_torch.training.train_step",
+                     "cotr_tpu_torch.training.trainer",
+                     "cotr_tpu_torch.training.tb",
+                     "cotr_tpu_torch.models.torch_convert",
+                     "cotr_tpu_torch.ops.dropout"]
+
+
+def test_training_modules_import_with_jax_optax_orbax_and_cotr_tpu_blocked():
+    for module in _TRAINING_MODULES:
         proc = _run_blocked(module)
         assert proc.returncode == 0, module + "\n" + proc.stdout + proc.stderr
         assert f"imported {module}" in proc.stdout
