@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -32,10 +33,26 @@ Phases (any failure exits non-zero):
 8. serving, many pairs: 8 pairs of 32 queries through
    ``cotr_corr_multiscale_multipair``, beside 8 serial calls, then the
    cycle-consistent multi-pair call on two of them;
-9. one JSON line describing each kernel, then the device line last.
+9. training, card against CPU: one ``cotr_loss`` forward and backward at
+   full width (dropout 0, batch 2, 100 queries) on both devices;
+10. training: 30 steps of ``Trainer.train`` at full width with
+    ``TrainConfig()`` (batch 24, 200 queries a sample, dropout 0.1) on one
+    generated batch in the ``crop`` + ``h_mat`` layout, from the flagship's
+    backbone and fresh weights elsewhere; the steady steps run under
+    ``torch.cuda.set_sync_debug_mode("error")`` and launch no attention
+    kernel (the einsum path). Then a step on a batch that holds a NaN (it
+    must change nothing but the step count), five steps with
+    ``lr_backbone=1e-5`` (layer2/3 convolutions move, the stem, layer1 and
+    FrozenBN do not) and a few in bfloat16, each with its time a step and
+    its peak memory;
+11. the evaluation step on that batch, through the kernels, beside the
+    einsum path;
+12. a checkpoint that a fresh Trainer resumes to the same next step, and
+    the trained weights written as ``.npz`` and served by ``SparseEngine``;
+13. one JSON line describing each kernel, then the device line last.
 
-The kernel's launch counts are set to 0 just before each serving path and
-read just after it.
+The kernel's launch counts are set to 0 just before each path and read just
+after it.
 
 It imports nothing of JAX or the JAX package. Without a card, or without
 the repository around it, it exits non-zero before printing any result.
@@ -45,11 +62,15 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -88,7 +109,9 @@ SHAPES = [("encoder self-attention", 2, 512),
           ("squad encoder", 128, 512),
           ("squad decode, member bucket", 128, 64),
           ("squad decode, max_load + 1", 128, 257),
-          ("squad decode, small group", 8, 64)]
+          ("squad decode, small group", 8, 64),
+          ("evaluation encoder", 24, 512),
+          ("evaluation decode", 24, 200)]
 
 # the windowed crops vs the full-image crop, float32 on a [0, 1] image: the
 # same sum with its zero terms left out, in another order
@@ -99,6 +122,33 @@ CROP_TOL = 1e-6
 # patch_box's floor turns that into whole-pixel box shifts for a few
 SAME_WITHIN_1PX = 0.95
 SAME_MEDIAN_PX = 0.1
+
+# one loss forward and backward at full width, card vs CPU, float32 without
+# TF32: the same sums in other orders, through 53 convolutions and 12 layers,
+# twice. float32 rounding alone moves single tensors' gradients by a
+# hundredth of their size there (a ReLU that flips, sums that cancel), so the
+# sharp gate is on the whole gradient: the L2 norm of the difference over the
+# L2 norm of the CPU's gradient. Each tensor is held to the looser share of
+# its own norm; a tensor whose gradient is rounding noise (a key projection's
+# bias: a softmax does not see a constant added to all its logits) to that
+# share of 1e-4 of the whole gradient's norm
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 2e-3
+TRAIN_TENSOR_RTOL = 3e-2
+TRAIN_TENSOR_FLOOR = 1e-4
+# the targets of that comparison are displaced by this much (8 px of the
+# canvas's width): at the flagship's own targets its gradient is a sum of
+# terms that nearly cancel, which float32 resolves ten times worse
+TRAIN_PARITY_SHIFT = 0.03
+TRAIN_STEPS = 30
+# the first steps pay for cuDNN's choice of algorithms and the allocator
+TRAIN_WARMUP_STEPS = 3
+# the evaluation step through the kernels vs the einsum path, float32
+EVAL_RTOL = 1e-4
+# a resumed step vs the unbroken one: the same kernels on the same values,
+# but for cuDNN's and cuBLAS's freedom in the order of a sum; one step moves
+# a weight by about the rate, 1e-4
+RESUME_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -737,6 +787,345 @@ def phase_multipair(attention, grouped, faster_cls, runner) -> dict:
     return record
 
 
+# ---------------------------------------------------------------- training
+
+def make_train_batch(rng, n: int, num_kp: int) -> dict:
+    """``n`` samples in the ``crop`` + ``h_mat`` layout: 256-square generated
+    crops, a known homography each, ``num_kp`` correspondences that stay in
+    both frames, normalized to the canvas (x of the B side plus 256, then x
+    over 512 and y over 256), both directions stacked. numpy arrays."""
+    size = 256
+    crops, h_mats, queries, targets = [], [], [], []
+    while len(crops) < n:
+        hmat = known_homography(size, size, rng.uniform(-12, 12),
+                                rng.uniform(0.9, 1.12),
+                                rng.uniform(-14, 14, 2))
+        pts_a = rng.uniform(8, size - 9, (6 * num_kp, 2))
+        pts_b = apply_h(hmat, pts_a)
+        ok = ((pts_b >= 0.0) & (pts_b <= size - 1.001)).all(axis=1)
+        if ok.sum() < num_kp:
+            continue
+        corrs = np.concatenate([pts_a[ok][:num_kp], pts_b[ok][:num_kp]], 1)
+        corrs[:, 2] += size
+        corrs /= np.array([2 * size, size, 2 * size, size])
+        crops.append(procedural_texture(rng, size, size))
+        h_mats.append(hmat)
+        queries.append(np.concatenate([corrs[:, :2], corrs[:, 2:]]))
+        targets.append(np.concatenate([corrs[:, 2:], corrs[:, :2]]))
+    return dict(crop=np.stack(crops),
+                h_mat=np.stack(h_mats).astype(np.float32),
+                queries=np.stack(queries).astype(np.float32),
+                targets=np.stack(targets).astype(np.float32))
+
+
+def on_card(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def phase_train_parity(load_model, cfg, loss_mod, train_step_mod,
+                       train_cfg) -> dict:
+    """One ``cotr_loss`` forward and backward at full width with the
+    flagship's weights, dropout 0, batch 2, 100 queries a sample, the
+    targets displaced: the card against the CPU."""
+    batch = make_train_batch(np.random.RandomState(8), 2, 50)
+    batch["targets"] = batch["targets"] + np.float32(TRAIN_PARITY_SHIFT)
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = load_model(FLAGSHIP, cfg, device=device).train()
+        t0 = time.perf_counter()
+        views = train_step_mod.batch_views(
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+            train_cfg)
+        loss, metrics = loss_mod.cotr_loss(model, *views[:3])
+        loss.backward()
+        out[device] = dict(
+            loss=float(loss.detach()),
+            cycle_loss=float(metrics["cycle_loss"].detach()),
+            grads={k: p.grad.cpu().numpy()
+                   for k, p in model.named_parameters()})
+        log(f"[train-parity] {device}: loss {out[device]['loss']:.6f} "
+            f"(cycle term {out[device]['cycle_loss']:.6f}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del model
+    loss_err = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) \
+        / abs(out["cpu"]["loss"])
+    want, got = out["cpu"]["grads"], out["cuda"]["grads"]
+
+    def norm(arrays) -> float:
+        return float(np.sqrt(sum(np.square(a, dtype=np.float64).sum()
+                                 for a in arrays)))
+
+    whole = norm(want.values())
+    grad_err = norm(got[k] - g for k, g in want.items()) / whole
+    worst, worst_key = 0.0, ""
+    for key, g in want.items():
+        err = norm([got[key] - g]) / max(norm([g]),
+                                         TRAIN_TENSOR_FLOOR * whole)
+        if err > worst:
+            worst, worst_key = err, key
+    log(f"[train-parity] full width, batch 2, 100 queries, card vs CPU: loss "
+        f"rel err {loss_err:.2e} (tol {TRAIN_LOSS_RTOL}); {len(want)} "
+        f"gradients, relative L2 error of the whole {grad_err:.2e} (tol "
+        f"{TRAIN_GRAD_RTOL}), worst tensor {worst:.2e} of its norm at "
+        f"{worst_key} (tol {TRAIN_TENSOR_RTOL})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL
+            and worst <= TRAIN_TENSOR_RTOL):
+        raise AssertionError("[train-parity] the card disagrees with the CPU")
+    if not out["cpu"]["cycle_loss"] > 0.0:
+        raise AssertionError("[train-parity] the cycle term is zero: the "
+                             "second forward's gradient was not checked")
+    return dict(loss=out["cuda"]["loss"], cycle_loss=out["cuda"]["cycle_loss"],
+                loss_rel_err=loss_err, grad_rel_l2_err=grad_err,
+                worst_tensor_err=worst, worst_tensor=worst_key,
+                gradients=len(want))
+
+
+class StepLog:
+    """Installed over a Trainer's train step: keeps every step's loss (on
+    the card, read after the run), records a CUDA event before each step,
+    and turns the sync debug mode to "error" once the warm-up steps are
+    over."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+        self.losses, self.events = [], []
+
+    def __call__(self, state, batch, generator):
+        if len(self.events) == TRAIN_WARMUP_STEPS:
+            torch.cuda.set_sync_debug_mode("error")
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+        state, metrics = self.step_fn(state, batch, generator)
+        self.losses.append(metrics["loss"])
+        return state, metrics
+
+    def finish(self) -> tuple:
+        """(losses, median ms of a steady step: from one step's start to the
+        next one's, the host's share included)."""
+        torch.cuda.set_sync_debug_mode("default")
+        last = torch.cuda.Event(enable_timing=True)
+        last.record()
+        torch.cuda.synchronize()
+        marks = self.events + [last]
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        return ([float(x) for x in self.losses],
+                statistics.median(ms[TRAIN_WARMUP_STEPS:]))
+
+
+def make_trainer(mods, cfg, train_cfg, batch, out_dir, seed=0):
+    """A Trainer at step 0 on the card: the flagship's backbone, everything
+    else drawn afresh from ``seed``; its loaders yield ``batch`` (already on
+    the card) once an epoch."""
+    trainer = mods.Trainer(mods.build_model(cfg), cfg, train_cfg,
+                           lambda: [batch], lambda: [batch], out_dir=out_dir,
+                           use_tensorboard=False, device="cuda")
+    trainer.initialize(seed=seed)
+    state = mods.params_from_flax(mods.load_flagship(FLAGSHIP))
+    prefix = "backbone."
+    trainer.state.model.backbone.load_state_dict(
+        {k[len(prefix):]: v for k, v in state.items()
+         if k.startswith(prefix)}, strict=True)
+    return trainer
+
+
+def run_steps(attention, trainer, steps: int, tag: str) -> dict:
+    """``steps`` more steps through ``Trainer.train`` with the counts set to
+    0 before; the steady ones under the sync debug mode."""
+    trainer.cfg = dataclasses.replace(
+        trainer.cfg, max_iter=trainer.state.step + steps)
+    spy = StepLog(trainer._train_step)
+    trainer._train_step = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with counted(attention, {}) as record:
+            try:
+                trainer.train()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        trainer._train_step = spy.step_fn
+    losses, ms = spy.finish()
+    record.update(steps=steps, losses=losses, ms_per_step=ms,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[{tag}] {steps} steps: {ms:.1f} ms a step (median of the steady "
+        f"ones), peak memory {record['peak_memory_gb']:.2f} GB, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, attention kernel launches "
+        f"{record['launches']}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[{tag}] a loss is not finite: {losses}")
+    if record["launches"] != 0:
+        raise AssertionError(f"[{tag}] training launched the forward-only "
+                             f"attention kernel {record['launches']} times")
+    return record
+
+
+def snapshot(trainer) -> dict:
+    opt = trainer.state.optimizer
+    return dict(model={k: v.clone() for k, v in
+                       trainer.state.model.state_dict().items()},
+                mu={k: v.clone() for k, v in opt.mu.items()},
+                nu={k: v.clone() for k, v in opt.nu.items()})
+
+
+def phase_train(attention, mods, batch, out_dir) -> tuple:
+    cfg = mods.COTRConfig()
+    train_cfg = mods.TrainConfig(valid_iter=10 ** 9)
+    trainer = make_trainer(mods, cfg, train_cfg, batch, out_dir)
+    main_run = run_steps(attention, trainer, TRAIN_STEPS, "train")
+    first = float(np.mean(main_run["losses"][:5]))
+    last = float(np.mean(main_run["losses"][-5:]))
+    log(f"[train] full width, batch {batch['crop'].shape[0]}, "
+        f"{batch['queries'].shape[1]} queries a sample, dropout "
+        f"{cfg.dropout}, rate {train_cfg.learning_rate}: mean loss of the "
+        f"first five steps {first:.5f}, of the last five {last:.5f}; steady "
+        f"steps clean under set_sync_debug_mode('error')")
+    if not last < first:
+        raise AssertionError("[train] the loss did not fall")
+
+    # a batch with a NaN planted: nothing may change but the step count
+    before = snapshot(trainer)
+    step_before = trainer.state.step
+    bad = dict(batch, targets=batch["targets"].clone())
+    bad["targets"][0, 0, 0] = float("nan")
+    trainer.state, metrics = trainer._train_step(trainer.state, bad, None)
+    after = snapshot(trainer)
+    unchanged = all(torch.equal(v, after[kind][k])
+                    for kind in before for k, v in before[kind].items())
+    opt = trainer.state.optimizer
+    log(f"[train] a step on a batch with a NaN: loss "
+        f"{float(metrics['loss'])}, parameters and moments unchanged: "
+        f"{unchanged}, step {step_before} -> {trainer.state.step}, Adam "
+        f"count {int(opt.count)}, notfinite_count "
+        f"{int(opt.notfinite_count)}")
+    if not (unchanged and trainer.state.step == step_before + 1
+            and int(opt.count) == TRAIN_STEPS
+            and int(opt.notfinite_count) == 1
+            and not np.isfinite(float(metrics["loss"]))):
+        raise AssertionError("[train] the non-finite step was not skipped")
+
+    # the freeze policy on the weights, with the backbone's rate above 0
+    tuned = make_trainer(mods, cfg, dataclasses.replace(
+        train_cfg, lr_backbone=1e-5), batch, out_dir)
+    start = {k: v.clone() for k, v in
+             tuned.state.model.backbone.state_dict().items()}
+    backbone_run = run_steps(attention, tuned, 5, "train, lr_backbone 1e-5")
+    buffers = {k for k, _ in tuned.state.model.backbone.named_buffers()}
+    wrong = []
+    for k, v in tuned.state.model.backbone.state_dict().items():
+        trainable = k not in buffers and k.startswith(("body.layer2",
+                                                       "body.layer3"))
+        if torch.equal(v, start[k]) == trainable:
+            wrong.append(k)
+    log(f"[train, lr_backbone 1e-5] {len(start)} backbone tensors: layer2 "
+        f"and layer3 convolutions moved, the stem, layer1 and every FrozenBN "
+        f"buffer did not; against the policy: {len(wrong)} {wrong[:4]}")
+    if wrong:
+        raise AssertionError("[train] the freeze policy does not hold")
+    del tuned, start
+
+    bf16 = make_trainer(mods, dataclasses.replace(cfg, dtype="bfloat16"),
+                        train_cfg, batch, out_dir)
+    bf16_run = run_steps(attention, bf16, 8, "train, bfloat16")
+    del bf16
+    torch.cuda.empty_cache()
+    return trainer, dict(main=main_run, first5_mean=first, last5_mean=last,
+                         lr_backbone=backbone_run, bfloat16=bf16_run)
+
+
+def phase_eval_step(attention, mods, trainer, batch) -> dict:
+    """The evaluation step through the kernels, beside the einsum path on
+    the same weights and batch."""
+    from cotr_tpu_torch.models import transformer
+
+    eval_step = mods.make_eval_step(trainer.cfg)
+    model = trainer.state.model
+    eval_step(model, batch)  # first use of the shapes
+    with counted(attention, {}) as record:
+        out = eval_step(model, batch)
+    b, q = batch["queries"].shape[:2]
+    by_shape = {(r["b"], r["lq"], r["s"]): r["launches"]
+                for r in record["shape_counts"]}
+    kernel_fn = transformer.flash_cross_attention
+    transformer.flash_cross_attention = attention.einsum_attention
+    try:
+        with counted(attention, {}) as einsum_record:
+            want = eval_step(model, batch)
+    finally:
+        transformer.flash_cross_attention = kernel_fn
+    val, val_einsum = float(out["val_loss"]), float(want["val_loss"])
+    rel = abs(val - val_einsum) / abs(val_einsum)
+    pred_err = float((out["pred"] - want["pred"]).abs().max())
+    record.update(val_loss=val, val_loss_einsum=val_einsum, rel_err=rel,
+                  pred_max_abs_err=pred_err)
+    log(f"[eval-step] val_loss {val:.6f} through the kernels, {val_einsum:.6f}"
+        f" through the einsum path (rel err {rel:.2e}, tol {EVAL_RTOL}), "
+        f"predictions max abs err {pred_err:.2e}; {record['launches']} "
+        f"launches in {record['wall_s'] * 1e3:.1f} ms")
+    log_counts("eval-step", record)
+    if by_shape != {(b, 512, 512): 6, (b, q, 512): 6}:
+        raise AssertionError(f"[eval-step] launches by shape {by_shape}, "
+                             f"expected 6 at ({b}, 512) and 6 at ({b}, {q})")
+    if einsum_record["launches"] != 0:
+        raise AssertionError("[eval-step] the comparison run was to take the "
+                             "einsum path")
+    if not (np.isfinite(val) and rel <= EVAL_RTOL):
+        raise AssertionError("[eval-step] the kernels' val_loss disagrees "
+                             "with the einsum path's")
+    return record
+
+
+def phase_checkpoint(attention, mods, trainer, batch, out_dir) -> dict:
+    """A checkpoint that a fresh Trainer resumes to the same next step; then
+    the trained weights as ``.npz`` through ``load_model`` into serving."""
+    trainer.save_checkpoint()
+    saved_step = trainer.state.step
+    trainer.cfg = dataclasses.replace(trainer.cfg, max_iter=saved_step + 1)
+    trainer.train()
+    fresh = make_trainer(mods, trainer.model_cfg, trainer.cfg, batch, out_dir,
+                         seed=5)
+    fresh.train(resume=True)
+    want = trainer.state.model.state_dict()
+    got = fresh.state.model.state_dict()
+    diff = max(float((got[k] - v).abs().max()) for k, v in want.items())
+    same_counters = (int(fresh.state.optimizer.count)
+                     == int(trainer.state.optimizer.count)
+                     and int(fresh.state.optimizer.total_notfinite)
+                     == int(trainer.state.optimizer.total_notfinite) == 1)
+    log(f"[checkpoint] saved at step {saved_step}; a fresh Trainer resumed "
+        f"and took step {fresh.state.step}: parameters within {diff:.2e} of "
+        f"the unbroken run's (tol {RESUME_ATOL}), counters equal: "
+        f"{same_counters}")
+    if not (fresh.state.step == trainer.state.step == saved_step + 1
+            and diff <= RESUME_ATOL and same_counters):
+        raise AssertionError("[checkpoint] the resumed step differs from the "
+                             "unbroken one")
+    del fresh
+
+    path = os.path.join(out_dir, "trained.npz")
+    mods.save_params_npz(trainer.state.model, path)
+    runner = mods.ModelRunner(mods.load_model(path, mods.COTRConfig(),
+                                              device="cuda"), device="cuda")
+    img_a, img_b, _ = make_pair(np.random.RandomState(9), (480, 640), 3.0,
+                                1.02, (8, -6))
+    queries = grid_queries(480, 640, nx=8, ny=4)
+    with counted(attention, {}) as record:
+        corrs = mods.SparseEngine(runner, mode="tile").cotr_corr_multiscale(
+            img_a, img_b, zoom_ins=ZOOMS, queries_a=queries, force=True,
+            max_corrs=len(queries))
+    log(f"[checkpoint] {os.path.getsize(path) / 1e6:.1f} MB .npz of the "
+        f"trained weights -> load_model -> SparseEngine: {corrs.shape[0]} "
+        f"correspondences for {len(queries)} queries in "
+        f"{record['wall_s']:.2f} s, {record['launches']} kernel launches")
+    if corrs.shape != (len(queries), 4) or not np.isfinite(corrs).all():
+        raise AssertionError(f"[checkpoint] serving the trained weights: "
+                             f"{corrs.shape} or non-finite output")
+    record.update(resume_max_abs_diff=diff, saved_step=saved_step,
+                  correspondences=int(corrs.shape[0]))
+    return record
+
+
 def merged_shape_counts(records) -> list:
     total = {}
     for record in records:
@@ -759,8 +1148,24 @@ def main() -> int:
     from cotr_tpu_torch.inference.engine import (FasterSparseEngine,
                                                  SparseEngine)
     from cotr_tpu_torch.inference.runner import ModelRunner
+    from cotr_tpu_torch.config import TrainConfig
+    from cotr_tpu_torch.models import checkpoint_io
     from cotr_tpu_torch.models.checkpoint_io import load_model
+    from cotr_tpu_torch.models.cotr import build_model
     from cotr_tpu_torch.ops import attention, sampling
+    from cotr_tpu_torch.training import loss as loss_mod
+    from cotr_tpu_torch.training import train_step as train_step_mod
+    from cotr_tpu_torch.training.trainer import Trainer
+
+    # the entry points the training phases call
+    mods = types.SimpleNamespace(
+        COTRConfig=COTRConfig, TrainConfig=TrainConfig, Trainer=Trainer,
+        build_model=build_model, load_model=load_model,
+        ModelRunner=ModelRunner, SparseEngine=SparseEngine,
+        params_from_flax=checkpoint_io.params_from_flax,
+        load_flagship=checkpoint_io.load_flagship,
+        save_params_npz=checkpoint_io.save_params_npz,
+        make_eval_step=train_step_mod.make_eval_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -778,12 +1183,29 @@ def main() -> int:
                           SparseEngine, runner, big_pair)
     multipair = phase_multipair(attention, grouped, FasterSparseEngine,
                                 runner)
-    # the serving paths' own runs; the comparison runs beside them (scan
-    # engine on the squad phase's queries, the serial calls) are left out
+    del runner
+    torch.cuda.empty_cache()
+    train_parity = phase_train_parity(load_model, COTRConfig(), loss_mod,
+                                      train_step_mod, TrainConfig())
+    batch = on_card(make_train_batch(np.random.RandomState(7), 24,
+                                     TrainConfig().num_kp))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(ROOT, "build")) as out_dir:
+        trainer, train = phase_train(attention, mods, batch, out_dir)
+        eval_step = phase_eval_step(attention, mods, trainer, batch)
+        checkpoint = phase_checkpoint(attention, mods, trainer, batch,
+                                      out_dir)
+    # each path's own run; the comparison runs beside them (scan engine on
+    # the squad phase's queries, the serial calls, the einsum evaluation)
+    # are left out, and so is serving the trained weights, which repeats
+    # the scan engine's shapes
     paths = {"scan engine, 3 pairs": serve,
              "squad engine, 2,000 queries": squad,
              "multi-pair, 8 pairs x 32 queries": multipair,
-             "cycle-consistent multi-pair, 2 pairs": multipair["cycle"]}
+             "cycle-consistent multi-pair, 2 pairs": multipair["cycle"],
+             "training, 30 steps (the einsum path)": train["main"],
+             "evaluation step": eval_step}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
 
@@ -806,11 +1228,17 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build=build, crops=crops, forward=forward,
                        serve_wall_s=serve["wall_s"], serve=serve,
-                       squad=squad, multipair=multipair, kernels=kernels),
+                       squad=squad, multipair=multipair,
+                       train_parity=train_parity, train=train,
+                       eval_step=eval_step, checkpoint=checkpoint,
+                       kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
         f"{squad['wall_s']:.3f} s; [multipair] wall "
-        f"{multipair['wall_s']:.3f} s")
+        f"{multipair['wall_s']:.3f} s; [train] "
+        f"{train['main']['ms_per_step']:.1f} ms a step float32, "
+        f"{train['lr_backbone']['ms_per_step']:.1f} ms with lr_backbone "
+        f"1e-5, {train['bfloat16']['ms_per_step']:.1f} ms bfloat16")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

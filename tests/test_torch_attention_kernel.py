@@ -46,7 +46,11 @@ def card():
                                   # the squad engine's: encoder, both member
                                   # paddings (257 leaves a tile of one row),
                                   # the small group
-                                  (128, 512), (128, 64), (128, 257), (8, 64)])
+                                  (128, 512), (128, 64), (128, 257), (8, 64),
+                                  # the evaluation step's: encoder, and 100
+                                  # correspondences in both directions (a
+                                  # last 64-row tile of 8 rows)
+                                  (24, 512), (24, 200)])
 def test_kernel_matches_plain(card, b, lq, dtype):
     td = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(card, td) for x in _inputs(b, lq))
