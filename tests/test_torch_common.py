@@ -10,6 +10,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cotr_tpu import COTRConfig as JaxConfig
@@ -142,6 +143,17 @@ def test_small_models_share_weights():
     s = np.asarray(flat["params/transformer/decoder_norm/scale"])
     np.testing.assert_array_equal(
         state["transformer.decoder_norm.weight"].numpy(), s)
+
+
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """Two intra-op threads for a module whose tests run the ResNet's
+    backward on the CPU: the suite runs in several worker processes at once,
+    and a full thread pool in each makes them wait on one another."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def grads_to_port(jax_grads) -> dict:

@@ -13,7 +13,10 @@ from cotr_tpu_torch.models.cotr import build_model
 from cotr_tpu_torch.training import tb as port_tb
 from cotr_tpu_torch.training.trainer import Trainer
 
+from tests.test_torch_common import few_torch_threads  # noqa: F401
 from tests.test_torch_trainer import TINY, _loader
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 
 def test_draw_corrs_equals_jax():

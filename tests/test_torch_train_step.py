@@ -28,7 +28,10 @@ from cotr_tpu_torch.config import TrainConfig
 from cotr_tpu_torch.models.checkpoint_io import params_to_flax
 from cotr_tpu_torch.training import train_step as port_ts
 
-from tests.test_torch_common import small_models, smooth_image
+from tests.test_torch_common import (few_torch_threads,  # noqa: F401
+                                     small_models, smooth_image)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 LOSS_RTOL = 1e-4
 PARAM_ATOL = 1e-5

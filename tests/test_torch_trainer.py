@@ -15,6 +15,10 @@ from cotr_tpu_torch.config import (COTRConfig, TrainConfig,
 from cotr_tpu_torch.models.cotr import build_model
 from cotr_tpu_torch.training.trainer import KEEP_KEYS, Trainer
 
+from tests.test_torch_common import few_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
+
 #: the smallest full-structure model, with dropout so that the generator
 #: matters for the resume
 TINY = dict(enc_layers=1, dec_layers=1, hidden_dim=64, nheads=2, dropout=0.1)
@@ -65,9 +69,9 @@ def _assert_same(a, b):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """An unbroken run of 5 steps; a run of 3 steps (checkpoint at 2) that a
-    fresh trainer resumes to 5."""
-    unbroken = _trainer(tmp_path_factory.mktemp("unbroken"), 5)
+    """An unbroken run of 4 steps; a run of 3 steps (checkpoint at 2) that a
+    fresh trainer resumes to 4."""
+    unbroken = _trainer(tmp_path_factory.mktemp("unbroken"), 4)
     unbroken.train()
     broken_dir = tmp_path_factory.mktemp("broken")
     first = _trainer(broken_dir, 3)
@@ -77,8 +81,8 @@ def runs(tmp_path_factory):
 
 def test_steps_counted_and_rolling_checkpoint_written(runs):
     unbroken, first, broken_dir = runs
-    assert unbroken.state.step == 5 and first.state.step == 3
-    assert int(unbroken.state.optimizer.count) == 5
+    assert unbroken.state.step == 4 and first.state.step == 3
+    assert int(unbroken.state.optimizer.count) == 4
     assert os.path.exists(broken_dir / "checkpoints" / "checkpoint.pt")
     payload = torch.load(broken_dir / "checkpoints" / "checkpoint.pt",
                          weights_only=True)
@@ -111,7 +115,7 @@ def test_load_checkpoint_restores_step_parameters_moments_and_counters(
 
 def test_resumed_run_equals_unbroken_run_bit_for_bit(runs):
     unbroken, _, broken_dir = runs
-    resumed = _trainer(broken_dir, 5)
+    resumed = _trainer(broken_dir, 4)
     resumed.train(resume=True)  # from the checkpoint at step 2
     _assert_same(_snapshot(resumed), _snapshot(unbroken))
 

@@ -17,7 +17,11 @@ from cotr_tpu_torch.models import transformer as port_tr
 from cotr_tpu_torch.ops import attention
 from cotr_tpu_torch.ops.dropout import dropout
 
-from tests.test_torch_common import grads_to_port, random_canvas, small_models
+from tests.test_torch_common import (few_torch_threads,  # noqa: F401
+                                     grads_to_port, random_canvas,
+                                     small_models)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 ATTN_ATOL = 1e-5
 INTERMEDIATE_ATOL = 1e-4
