@@ -49,7 +49,21 @@ Phases (any failure exits non-zero):
     einsum path;
 12. a checkpoint that a fresh Trainer resumes to the same next step, and
     the trained weights written as ``.npz`` and served by ``SparseEngine``;
-13. one JSON line describing each kernel, then the device line last.
+13. the synthetic recipe's loader alone (``[synthetic-loader]``): batches
+    of 24 from the train twin's dataset (8 generated ``.npy`` textures, 64
+    procedural ones, ``tex_aug``, the crop layout) through
+    ``PrefetchLoader`` with 8 workers, samples a second and one worker's
+    time a sample; a few batches in the ``image`` layout;
+14. the train twin (``cotr_tpu_torch.tools.train_synthetic``) from that
+    loader (``[synthetic-train]``): 60 steps at batch 24 with its defaults
+    (bfloat16, lr_backbone 1e-4, dropout 0) from the flagship, a
+    validation every 30 through the kernels, checkpoints, the held-out
+    error before and after; then ``--resume`` to step 70;
+15. the eval twin (``cotr_tpu_torch.tools.eval_synthetic_pair``) on a
+    generated 512 x 512 image (``[synthetic-eval]``): three warp seeds, a
+    12 x 12 grid, ``FasterSparseEngine`` with ``max_load`` 256, zoom depth
+    4, the painted overlay; in bfloat16 and float32;
+16. one JSON line describing each kernel, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -62,6 +76,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -110,6 +125,9 @@ SHAPES = [("encoder self-attention", 2, 512),
           ("squad decode, member bucket", 128, 64),
           ("squad decode, max_load + 1", 128, 257),
           ("squad decode, small group", 8, 64),
+          ("squad encoder, small group", 8, 512),
+          ("dense seed of one square pair: encoder", 1, 512),
+          ("dense seed of one square pair: decode chunk", 1, 8192),
           ("evaluation encoder", 24, 512),
           ("evaluation decode", 24, 200)]
 
@@ -145,6 +163,15 @@ TRAIN_STEPS = 30
 TRAIN_WARMUP_STEPS = 3
 # the evaluation step through the kernels vs the einsum path, float32
 EVAL_RTOL = 1e-4
+# the synthetic recipe (tools/train_synthetic.py's twin): batches of 24 from
+# its dataset, 8 generated textures plus 64 procedural ones
+SYNTH_BATCH = 24
+SYNTH_TEXTURES = 8
+SYNTH_LOADER_BATCHES = 20
+SYNTH_IMAGE_BATCHES = 5
+SYNTH_STEPS = 60
+SYNTH_VALID_ITER = 30
+SYNTH_RESUME_STEPS = 70
 # a resumed step vs the unbroken one: the same kernels on the same values,
 # but for cuDNN's and cuBLAS's freedom in the order of a sum; one step moves
 # a weight by about the rate, 1e-4
@@ -1126,6 +1153,348 @@ def phase_checkpoint(attention, mods, trainer, batch, out_dir) -> dict:
     return record
 
 
+# ------------------------------------------------- the synthetic recipe
+
+def write_textures(directory: str, n: int, rng) -> str:
+    """``n`` generated textures as ``.npy`` files (uint8, 512 x 512 and
+    512 x 640 in turn, the sizes of photographs the recipe crops); returns
+    their glob."""
+    for i in range(n):
+        tex = procedural_texture(rng, 512, 640 if i % 2 else 512)
+        np.save(os.path.join(directory, f"texture_{i}.npy"), tex)
+    return os.path.join(directory, "texture_*.npy")
+
+
+def synthetic_argv(texture_glob: str, out_dir: str, steps: int,
+                   *extra) -> list:
+    """The train twin's command line of the synthetic phases: its defaults
+    (bfloat16, lr_backbone 1e-4, dropout 0, device_warp, 8 workers, batch
+    24) from the flagship, with the texture pool of the recipe."""
+    return ["--steps", str(steps), "--valid_iter", str(SYNTH_VALID_ITER),
+            "--init_weights", FLAGSHIP, "--proc_textures", "64", "--tex_aug",
+            "--textures", texture_glob, "--out", out_dir, *extra]
+
+
+def phase_synthetic_loader(mods, train_ds) -> dict:
+    """The loader alone: ``SYNTH_LOADER_BATCHES`` batches of the train
+    twin's dataset through ``PrefetchLoader`` with its 8 workers, one
+    worker's time a sample, and a few batches in the ``image`` layout (the
+    B side warped on the host, a uint8 canvas)."""
+    batch = SYNTH_BATCH
+    timer = mods.PhaseTimer()
+    for i in range(batch):  # before any pool runs
+        with timer.phase("one sample, one thread (crop layout)"):
+            train_ds[i]
+    t0 = time.perf_counter()
+    loader = iter(mods.PrefetchLoader(train_ds, batch, num_workers=8,
+                                      seed=1))
+    for _ in range(SYNTH_LOADER_BATCHES):
+        with timer.phase("batch (crop layout)"):
+            out = next(loader)
+    wall = time.perf_counter() - t0
+    loader.close()
+    if out["crop"].shape != (batch, 256, 256, 3) or \
+            out["queries"].shape != (batch, 2 * train_ds.num_kp, 2):
+        raise AssertionError(f"[synthetic-loader] batch shapes "
+                             f"{ {k: v.shape for k, v in out.items()} }")
+    image_ds = copy.copy(train_ds)
+    image_ds.device_warp = False
+    t1 = time.perf_counter()
+    loader = iter(mods.PrefetchLoader(image_ds, batch, num_workers=8,
+                                      seed=1))
+    for _ in range(SYNTH_IMAGE_BATCHES):
+        with timer.phase("batch (image layout)"):
+            img_out = next(loader)
+    image_wall = time.perf_counter() - t1
+    loader.close()
+    if img_out["image"].shape != (batch, 256, 512, 3) or \
+            img_out["image"].dtype != np.uint8:
+        raise AssertionError(f"[synthetic-loader] image layout "
+                             f"{img_out['image'].shape} "
+                             f"{img_out['image'].dtype}")
+    per_sample = timer.totals["one sample, one thread (crop layout)"] / batch
+    record = dict(
+        cpu_count=os.cpu_count(), workers=8, batch=batch,
+        textures=len(train_ds.images),
+        batches=SYNTH_LOADER_BATCHES,
+        samples_per_s=SYNTH_LOADER_BATCHES * batch / wall, wall_s=wall,
+        ms_per_sample_one_thread=per_sample * 1e3,
+        image_layout=dict(batches=SYNTH_IMAGE_BATCHES,
+                          samples_per_s=SYNTH_IMAGE_BATCHES * batch
+                          / image_wall, wall_s=image_wall),
+        timer=timer.report())
+    log(f"[synthetic-loader] os.cpu_count() {os.cpu_count()}, 8 worker "
+        f"threads, {len(train_ds.images)} textures: {SYNTH_LOADER_BATCHES} "
+        f"batches of {batch} in {wall:.2f} s, "
+        f"{record['samples_per_s']:.1f} samples/s (crop layout); one "
+        f"sample on one thread {per_sample * 1e3:.2f} ms; image layout "
+        f"{SYNTH_IMAGE_BATCHES} batches, "
+        f"{record['image_layout']['samples_per_s']:.1f} samples/s")
+    for line in timer.report().splitlines():
+        log(f"[synthetic-loader] {line}")
+    return record
+
+
+class TimedLoader:
+    """A loader factory whose waits (the time the training loop spends in
+    ``next``) are kept batch by batch: ``waits`` in order, and apart from
+    them the wait for each pass's first batch (the loader's start-up), so
+    that start-up and the steady supply can be told apart."""
+
+    def __init__(self, factory):
+        self.factory = factory
+        self.waits = []
+        self.first_wait_s = 0.0
+
+    @property
+    def wait_s(self) -> float:
+        return sum(self.waits)
+
+    @property
+    def batches(self) -> int:
+        return len(self.waits)
+
+    def __call__(self):
+        it = iter(self.factory())
+        first = True
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                wait = time.perf_counter() - t0
+                if first:
+                    self.first_wait_s += wait
+                    first = False
+                self.waits.append(wait)
+                yield batch
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+
+class TrainSpy:
+    """Installed over a Trainer: a CUDA event before each train step (its
+    loss kept on the card), the kernel launches inside the steps, and the
+    wall time, launches by shape and batches of every validation, and the
+    wall time of every checkpoint write."""
+
+    def __init__(self, attention, trainer):
+        self.attention = attention
+        self.trainer = trainer
+        self.step_fn = trainer._train_step
+        self.validate_fn = trainer.validate
+        self.save_fn = trainer.save_checkpoint
+        self.losses, self.events = [], []
+        self.first_step = None
+        self.step_launches = 0
+        self.validations, self.checkpoint_s = [], []
+        trainer._train_step = self.step
+        trainer.validate = self.validate
+        trainer.save_checkpoint = self.save
+
+    def step(self, state, batch, generator):
+        if self.first_step is None:
+            self.first_step = state.step
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+        before = self.attention.launches
+        state, metrics = self.step_fn(state, batch, generator)
+        self.step_launches += self.attention.launches - before
+        self.losses.append(metrics["loss"])
+        return state, metrics
+
+    def validate(self):
+        torch.cuda.synchronize()
+        before = dict(self.attention.shape_counts)
+        t0 = time.perf_counter()
+        val = self.validate_fn()
+        torch.cuda.synchronize()
+        by_shape = {k: n - before.get(k, 0)
+                    for k, n in self.attention.shape_counts.items()
+                    if n - before.get(k, 0)}
+        self.validations.append(dict(
+            wall_s=time.perf_counter() - t0, val_loss=val,
+            shape_counts=[dict(b=b, lq=lq, s=s, dtype=dt, launches=n)
+                          for (b, lq, s, dt), n in sorted(by_shape.items())]))
+        return val
+
+    def save(self, tag: str = "checkpoint"):
+        t0 = time.perf_counter()
+        self.save_fn(tag)
+        self.checkpoint_s.append(time.perf_counter() - t0)
+
+    def finish(self) -> tuple:
+        """(losses, ms of every step from its start to the next one's)."""
+        last = torch.cuda.Event(enable_timing=True)
+        last.record()
+        torch.cuda.synchronize()
+        marks = self.events + [last]
+        return ([float(x) for x in self.losses],
+                [a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+
+
+def run_train_twin(attention, train_twin, args, train_ds, val_ds,
+                   tag: str) -> dict:
+    """The train twin's ``train_and_report`` on a trainer built by its own
+    functions, with the spies installed and the counts set to 0 before."""
+    trainer = train_twin.build_trainer(args, train_ds, val_ds,
+                                       device="cuda")
+    loader = TimedLoader(trainer.train_loader)
+    trainer.train_loader = loader
+    spy = TrainSpy(attention, trainer)
+    sample = train_twin.heldout_sample(val_ds, args.batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(attention, {}) as record:
+        result = train_twin.train_and_report(args, trainer, sample)
+    losses, ms = spy.finish()
+    steady = ms[TRAIN_WARMUP_STEPS:]
+    record.update(
+        first_step=spy.first_step, last_step=result["step"],
+        steps=len(losses), losses=losses,
+        ms_per_step=statistics.median(steady) if steady else float("nan"),
+        ms_per_step_mean=float(np.mean(steady)) if steady else float("nan"),
+        loader_wait_s=loader.wait_s, loader_batches=loader.batches,
+        loader_wait_share=loader.wait_s / record["wall_s"],
+        loader_first_batch_s=loader.first_wait_s,
+        step_launches=spy.step_launches, validations=spy.validations,
+        checkpoint_write_s=spy.checkpoint_s,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        heldout_before_px=list(result["before_px"]),
+        heldout_after_px=list(result["after_px"]))
+    first, last = losses[:10], losses[-10:]
+    log(f"[{tag}] steps {spy.first_step} -> {result['step']} in "
+        f"{record['wall_s']:.1f} s wall: {record['ms_per_step']:.1f} ms a "
+        f"step (median of the steady ones, loader wait and upload "
+        f"included; mean {record['ms_per_step_mean']:.1f}), loop waiting "
+        f"on the loader {loader.wait_s:.2f} s "
+        f"({record['loader_wait_share']:.1%} of the wall; "
+        f"{loader.first_wait_s:.2f} s of it for the first batch), peak memory "
+        f"{record['peak_memory_gb']:.2f} GB, kernel launches in the steps "
+        f"{spy.step_launches}")
+    log(f"[{tag}] loss, first {len(first)} steps "
+        f"{np.round(first, 5).tolist()}; last {len(last)} "
+        f"{np.round(last, 5).tolist()}")
+    for i, v in enumerate(spy.validations):
+        log(f"[{tag}] validation {i}: {v['wall_s'] * 1e3:.1f} ms wall, "
+            f"val_loss {v['val_loss']:.6f}, launches "
+            + ", ".join(f"({r['b']}, {r['lq']}) {r['dtype']} {r['launches']}"
+                        for r in v["shape_counts"]))
+    log(f"[{tag}] checkpoint writes "
+        f"{[round(t * 1e3, 1) for t in spy.checkpoint_s]} ms; held-out "
+        f"error before {np.round(result['before_px'], 2).tolist()} px, "
+        f"after {np.round(result['after_px'], 2).tolist()} px (mean, "
+        f"median)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[{tag}] a loss is not finite")
+    if spy.step_launches != 0:
+        raise AssertionError(f"[{tag}] the train steps launched the "
+                             f"forward-only kernel {spy.step_launches} times")
+    n_val = len(val_ds) // args.batch_size
+    want = {(args.batch_size, 512): args.enc_layers * n_val,
+            (args.batch_size, 2 * args.num_kp): args.dec_layers * n_val}
+    for v in spy.validations:
+        got = {(r["b"], r["lq"]): r["launches"] for r in v["shape_counts"]}
+        if got != want:
+            raise AssertionError(f"[{tag}] a validation launched {got}, "
+                                 f"expected {want}")
+    return record
+
+
+def phase_synthetic_train(attention, train_twin, texture_glob, out_dir,
+                          datasets) -> dict:
+    """The train twin from its loader: ``SYNTH_STEPS`` steps with a
+    validation every ``SYNTH_VALID_ITER``, then ``--resume`` to
+    ``SYNTH_RESUME_STEPS`` from the rolling checkpoint."""
+    args = train_twin.parse_args(synthetic_argv(texture_glob, out_dir,
+                                                SYNTH_STEPS))
+    train_ds, val_ds = datasets
+    main_run = run_train_twin(attention, train_twin, args, train_ds, val_ds,
+                              "synthetic-train")
+    if not (main_run["first_step"] == 0
+            and main_run["last_step"] == SYNTH_STEPS
+            and len(main_run["validations"]) == SYNTH_STEPS
+            // SYNTH_VALID_ITER):
+        raise AssertionError(f"[synthetic-train] steps "
+                             f"{main_run['first_step']} -> "
+                             f"{main_run['last_step']}, "
+                             f"{len(main_run['validations'])} validations")
+    resume_args = train_twin.parse_args(synthetic_argv(
+        texture_glob, out_dir, SYNTH_RESUME_STEPS, "--resume"))
+    resumed = run_train_twin(attention, train_twin, resume_args, train_ds,
+                             val_ds, "synthetic-train, --resume")
+    if not (resumed["first_step"] == SYNTH_STEPS
+            and resumed["last_step"] == SYNTH_RESUME_STEPS):
+        raise AssertionError(f"[synthetic-train] the resumed run took steps "
+                             f"{resumed['first_step']} -> "
+                             f"{resumed['last_step']}, expected "
+                             f"{SYNTH_STEPS} -> {SYNTH_RESUME_STEPS}")
+    steps_only = dict(launches=main_run["step_launches"]
+                      + resumed["step_launches"], shape_counts=[])
+    validation = dict(launches=sum(r["launches"] for v in
+                                   main_run["validations"]
+                                   for r in v["shape_counts"]),
+                      shape_counts=merged_shape_counts(
+                          main_run["validations"]))
+    return dict(main=main_run, resumed=resumed, steps_only=steps_only,
+                validation=validation)
+
+
+def phase_synthetic_eval(attention, eval_twin, zoom_ladder) -> dict:
+    """The eval twin on a generated 512 x 512 image: seeds 0, 1, 2, a 12 x 12
+    grid, ``max_load`` 256, zoom depth 4, the flagship through
+    ``load_params``; in bfloat16 (the tool's default) and float32."""
+    rng = np.random.RandomState(13)
+    img_a = eval_twin.center_crop(procedural_texture(rng, 560, 600), 512)
+    rep = procedural_texture(rng, 300, 400)
+    zooms = zoom_ladder(4)
+    seeds = [0, 1, 2]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        engine = eval_twin.build_engine(FLAGSHIP, dtype, max_load=256,
+                                        device="cuda")
+        with counted(attention, {}) as record:
+            stats = eval_twin.evaluate(engine, img_a, seeds, 0.15, 12, zooms,
+                                       1, "generated 512x512")
+            overlay, corner_err = eval_twin.paint_overlay(
+                engine, img_a, rep, seeds[0], 0.15, zooms)
+        expected = sum(len(eval_twin.query_grid(
+            512, 12, eval_twin.homography_for_seed(512, seed, 0.15))[0])
+            for seed in seeds)
+        variants = {}
+        for row in record["shape_counts"]:
+            kind = attention.choose_kernel(row["lq"], row["s"],
+                                           getattr(torch, row["dtype"]))
+            variants[kind] = variants.get(kind, 0) + row["launches"]
+        record.update(stats=stats, corner_epe_px=corner_err.tolist(),
+                      launches_by_kernel=variants, queries_expected=expected)
+        log(f"[synthetic-eval] {dtype}: {json.dumps(stats)}")
+        log(f"[synthetic-eval] {dtype}: painted overlay corner errors "
+            f"{np.round(corner_err, 2).tolist()} px; "
+            f"{record['wall_s']:.2f} s wall for 3 seeds and the overlay; "
+            f"launches by kernel {variants}")
+        log_counts("synthetic-eval", record)
+        if not (stats["queries"] == expected
+                and all(np.isfinite(v) for k, v in stats.items()
+                        if k.startswith(("epe", "pck")))
+                and np.isfinite(corner_err).all()
+                and overlay.shape == (512, 512, 3)):
+            raise AssertionError(f"[synthetic-eval] {dtype}: "
+                                 f"{stats['queries']} answers for {expected} "
+                                 f"queries, or a non-finite one")
+        if variants.get("tile", 0) < 1:
+            raise AssertionError("[synthetic-eval] the tile kernel was not "
+                                 "launched")
+        out[dtype] = record
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def merged_shape_counts(records) -> list:
     total = {}
     for record in records:
@@ -1156,6 +1525,11 @@ def main() -> int:
     from cotr_tpu_torch.training import loss as loss_mod
     from cotr_tpu_torch.training import train_step as train_step_mod
     from cotr_tpu_torch.training.trainer import Trainer
+    from cotr_tpu_torch.data.loader import PrefetchLoader
+    from cotr_tpu_torch.tools import eval_synthetic_pair as eval_twin
+    from cotr_tpu_torch.tools import train_synthetic as train_twin
+    from cotr_tpu_torch.utils.constants import zoom_ladder
+    from cotr_tpu_torch.utils.profiling import PhaseTimer
 
     # the entry points the training phases call
     mods = types.SimpleNamespace(
@@ -1165,7 +1539,8 @@ def main() -> int:
         params_from_flax=checkpoint_io.params_from_flax,
         load_flagship=checkpoint_io.load_flagship,
         save_params_npz=checkpoint_io.save_params_npz,
-        make_eval_step=train_step_mod.make_eval_step)
+        make_eval_step=train_step_mod.make_eval_step,
+        PrefetchLoader=PrefetchLoader, PhaseTimer=PhaseTimer)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1196,6 +1571,28 @@ def main() -> int:
         eval_step = phase_eval_step(attention, mods, trainer, batch)
         checkpoint = phase_checkpoint(attention, mods, trainer, batch,
                                       out_dir)
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        texture_dir = os.path.join(out_dir, "textures")
+        os.makedirs(texture_dir)
+        texture_glob = write_textures(texture_dir, SYNTH_TEXTURES,
+                                      np.random.RandomState(12))
+        synth_out = os.path.join(out_dir, "synthetic_run")
+        t0 = time.perf_counter()
+        datasets = train_twin.build_datasets(train_twin.parse_args(
+            synthetic_argv(texture_glob, synth_out, SYNTH_STEPS)))
+        dataset_s = time.perf_counter() - t0
+        log(f"[synthetic-loader] the twin's datasets (train and validation, "
+            f"{SYNTH_TEXTURES} .npy textures and 64 procedural ones each) "
+            f"built in {dataset_s:.2f} s")
+        synth_loader = phase_synthetic_loader(mods, datasets[0])
+        synth_loader["datasets_s"] = dataset_s
+        synth_train = phase_synthetic_train(attention, train_twin,
+                                            texture_glob, synth_out,
+                                            datasets)
+        del datasets
+    synth_eval = phase_synthetic_eval(attention, eval_twin, zoom_ladder)
     # each path's own run; the comparison runs beside them (scan engine on
     # the squad phase's queries, the serial calls, the einsum evaluation)
     # are left out, and so is serving the trained weights, which repeats
@@ -1205,7 +1602,13 @@ def main() -> int:
              "multi-pair, 8 pairs x 32 queries": multipair,
              "cycle-consistent multi-pair, 2 pairs": multipair["cycle"],
              "training, 30 steps (the einsum path)": train["main"],
-             "evaluation step": eval_step}
+             "evaluation step": eval_step,
+             "synthetic training from the loader, 60 + 10 steps (the "
+             "einsum path)": synth_train["steps_only"],
+             "synthetic validation, 2 x 4 batches of 24":
+                 synth_train["validation"],
+             "eval twin, bfloat16, 3 seeds + overlay": synth_eval["bfloat16"],
+             "eval twin, float32, 3 seeds + overlay": synth_eval["float32"]}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
 
@@ -1231,14 +1634,18 @@ def main() -> int:
                        squad=squad, multipair=multipair,
                        train_parity=train_parity, train=train,
                        eval_step=eval_step, checkpoint=checkpoint,
-                       kernels=kernels),
+                       synthetic_loader=synth_loader,
+                       synthetic_train=synth_train,
+                       synthetic_eval=synth_eval, kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
         f"{squad['wall_s']:.3f} s; [multipair] wall "
         f"{multipair['wall_s']:.3f} s; [train] "
         f"{train['main']['ms_per_step']:.1f} ms a step float32, "
         f"{train['lr_backbone']['ms_per_step']:.1f} ms with lr_backbone "
-        f"1e-5, {train['bfloat16']['ms_per_step']:.1f} ms bfloat16")
+        f"1e-5, {train['bfloat16']['ms_per_step']:.1f} ms bfloat16; "
+        f"[synthetic-train] {synth_train['main']['ms_per_step']:.1f} ms a "
+        f"step from the loader, bfloat16")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ of it and no JAX. Its one hand-written kernel is the fused attention in
 the caller passes ``device="cpu"``. The squad engine's greedy squad
 formation is host C++ in ``csrc/squads.cpp`` (native.py). Training
 (``training/``) takes the differentiable einsum attention: like the TPU
-kernel, the CUDA kernels are forward-only.
+kernel, the CUDA kernels are forward-only. ``data/`` holds the synthetic
+homography dataset and the prefetching loader, ``tools/`` the twins of the
+JAX package's synthetic training and evaluation tools
+(``python -m cotr_tpu_torch.tools.train_synthetic``).
 """
 
 __version__ = "0.1.0"

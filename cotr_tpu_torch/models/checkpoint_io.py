@@ -12,12 +12,16 @@ state_dict key by its path, with these layout rules:
 * FrozenBN ``weight``/``bias``/``running_mean``/``running_var`` as they are.
 
 ``params_to_flax`` and ``save_params_npz`` go the other way, so weights the
-port trained are served by either package.
+port trained are served by either package. ``load_params`` reads any weight
+file the port knows (``.npz``, the reference's ``.pth``/``.tar``, a
+``Trainer`` checkpoint) into a state_dict, and ``load_model`` goes through
+it.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, Mapping, Union
 
 import numpy as np
@@ -123,10 +127,8 @@ def save_params_npz(model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]]
     np.savez_compressed(path, **store)
 
 
-def load_state(model: COTRModel, flat: Mapping[str, np.ndarray]) -> None:
-    """Load flat Flax params into ``model``; any missing or unexpected key
-    raises."""
-    state = params_from_flax(flat)
+def _load_checked(model: COTRModel, state: Mapping[str, torch.Tensor]
+                  ) -> None:
     want = model.state_dict()
     missing = sorted(set(want) - set(state))
     unexpected = sorted(set(state) - set(want))
@@ -141,11 +143,59 @@ def load_state(model: COTRModel, flat: Mapping[str, np.ndarray]) -> None:
     model.load_state_dict(state, strict=True)
 
 
+def load_state(model: COTRModel, flat: Mapping[str, np.ndarray]) -> None:
+    """Load flat Flax params into ``model``; any missing or unexpected key
+    raises."""
+    _load_checked(model, params_from_flax(flat))
+
+
+def load_params(path: str, cfg: COTRConfig | None = None
+                ) -> Dict[str, torch.Tensor]:
+    """The weights at ``path`` as a state_dict for ``COTRModel`` (CPU
+    float32 tensors), whatever layout the file has:
+
+    * ``.pth`` / ``.tar``: the reference's PyTorch checkpoint
+      (``torch_convert``), mapped for ``cfg``;
+    * ``.npz``: the JAX package's weight file (``save_params_npz``);
+    * ``.pt``: a port ``Trainer`` checkpoint (``{version, step, params,
+      opt_state}``), whose layout version must be the one this build
+      writes.
+
+    An Orbax directory (the JAX package's trainer) raises ``ValueError``:
+    there is no Orbax here, and ``.npz`` is the exchange format."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an Orbax checkpoint of the JAX "
+            "package?); the port reads .npz weight files: write one with "
+            "cotr_tpu's save_params_npz")
+    if path.endswith((".pth", ".tar")):
+        from cotr_tpu_torch.models.torch_convert import load_torch_checkpoint
+
+        return load_torch_checkpoint(path, cfg, device="cpu").state_dict()
+    if path.endswith(".npz"):
+        return params_from_flax(load_flagship(path))
+    if path.endswith(".pt"):
+        from cotr_tpu_torch.training.trainer import Trainer
+
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        version = (int(payload.get("version", -1))
+                   if isinstance(payload, dict) else -1)
+        if version != Trainer.CKPT_VERSION or "params" not in payload:
+            raise ValueError(
+                f"checkpoint at {path} has layout version {version}; this "
+                f"build reads Trainer checkpoints of version "
+                f"{Trainer.CKPT_VERSION}")
+        return dict(payload["params"])
+    raise ValueError(f"unrecognized weight file {path}: expected .npz, "
+                     ".pth/.tar or a Trainer .pt")
+
+
 def load_model(path: str, cfg: COTRConfig | None = None,
                device="cuda") -> COTRModel:
-    """Build the model for ``cfg``, load ``path`` (a cotr_tpu ``.npz``) and
-    move it to ``device`` (the card unless the caller asks for the CPU)."""
+    """Build the model for ``cfg``, load ``path`` (any layout
+    :func:`load_params` reads) and move it to ``device`` (the card unless
+    the caller asks for the CPU)."""
     dev = resolve_device(device)
     model = build_model(cfg)
-    load_state(model, load_flagship(path))
+    _load_checked(model, load_params(path, model.cfg))
     return model.to(dev)

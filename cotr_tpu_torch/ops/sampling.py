@@ -14,8 +14,11 @@ cotr_tpu/ops/sampling.py), images in HWC layout.
   :func:`crop_and_resize_window_indexed`: the same crop for the squad
   engine, which first gathers a small window around each box and so
   multiplies over the window instead of the whole image.
-* :func:`resize_pil`: PIL's BILINEAR resize of a whole image without PIL,
-  for the field resizes where the JAX package calls PIL on the host.
+* :func:`resize_pil`: PIL's BILINEAR resize of a float field without PIL,
+  on the field's device, where the JAX package calls PIL on the host.
+* :func:`resize_pil_host`: the same of a host array; an 8-bit image goes
+  to :func:`resize_pil_u8_host`, equal to PIL's output (its taps, fixed
+  point and rounding).
 """
 
 from __future__ import annotations
@@ -245,33 +248,98 @@ def _pil_axis_weights_full(in_size: int, out_size: int,
 
 
 def resize_pil(img: torch.Tensor, shape_hw: Tuple[int, int]) -> torch.Tensor:
-    """PIL ``Image.resize(size, BILINEAR)`` of an (H, W) or (H, W, C) tensor
-    on its own device, per channel, without PIL.
+    """PIL ``Image.resize(size, BILINEAR)`` of an (H, W) or (H, W, C) float
+    tensor ('F' mode, per channel) on its own device, without PIL.
 
     PIL resamples horizontally, then vertically, each pass skipped when its
-    extent is unchanged, and stores the intermediate in the image's own
-    type: float32 for float fields ('F' mode), rounded 8-bit for uint8
-    (within one level of PIL's fixed-point arithmetic). Both passes are
-    float64 matrix products over (C, H, W) planes."""
+    extent is unchanged, and stores the intermediate in float32. Both passes
+    are float64 matrix products over (C, H, W) planes. 8-bit images go
+    through :func:`resize_pil_host`."""
+    if img.dtype == torch.uint8:
+        raise ValueError("resize_pil takes float fields; resize 8-bit images "
+                         "with resize_pil_host")
     out_h, out_w = shape_hw
     in_h, in_w = img.shape[:2]
-    as_u8 = img.dtype == torch.uint8
     x = img.double().reshape(in_h, in_w, -1).permute(2, 0, 1)
-
-    def settle(a):
-        if as_u8:
-            return torch.clamp(torch.round(a), 0, 255)
-        return a.float().double()
-
     if out_w != in_w:
-        x = settle(x @ _pil_axis_weights_full(in_w, out_w, x.device).T)
+        x = (x @ _pil_axis_weights_full(in_w, out_w, x.device).T
+             ).float().double()
     if out_h != in_h:
-        x = settle(_pil_axis_weights_full(in_h, out_h, x.device) @ x)
+        x = (_pil_axis_weights_full(in_h, out_h, x.device) @ x
+             ).float().double()
     x = x.permute(1, 2, 0).reshape((out_h, out_w) + tuple(img.shape[2:]))
-    return x.to(torch.uint8 if as_u8 else torch.float32)
+    return x.float()
 
 
 def resize_pil_host(img: np.ndarray, shape_hw: Tuple[int, int]) -> np.ndarray:
-    """:func:`resize_pil` of a host array."""
+    """PIL's BILINEAR resize of a host array: :func:`resize_pil_u8_host` for
+    uint8, :func:`resize_pil` for a float field."""
+    if img.dtype == np.uint8:
+        return resize_pil_u8_host(img, shape_hw)
     return resize_pil(torch.from_numpy(np.ascontiguousarray(img)),
                       shape_hw).numpy()
+
+
+#: PIL's fixed point for 8-bit images: 32 - 8 - 2 fraction bits
+_PIL_PRECISION_BITS = 22
+
+
+def _pil_u8_taps(in_size: int, out_size: int) -> Tuple[np.ndarray,
+                                                      np.ndarray]:
+    """PIL's BILINEAR taps for one axis of an 8-bit image, computed as
+    Pillow's ``precompute_coeffs`` computes them: (out, k) input indices and
+    (out, k) fixed-point weights, k = 2 * ceil(filter support) + 1. Taps
+    past an output's window have weight 0 (their index is clamped)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle's support is 1
+    k = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # (int) truncates toward zero, as astype does
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum((center + support + 0.5).astype(np.int64),
+                       in_size) - xmin
+    j = np.arange(k)
+    t = np.abs(((xmin[:, None] + j) - center[:, None] + 0.5)
+               * (1.0 / filterscale))
+    w = np.where((t < 1.0) & (j < count[:, None]), 1.0 - t, 0.0)
+    total = np.zeros(out_size)
+    for col in range(k):  # summed in PIL's order
+        total = total + w[:, col]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0.0, 1.0,
+                                                     total)[:, None], w)
+    weights = (0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(np.int64)
+    return np.minimum(xmin[:, None] + j, in_size - 1), weights
+
+
+def resize_pil_u8_host(img: np.ndarray,
+                       shape_hw: Tuple[int, int]) -> np.ndarray:
+    """PIL ``Image.resize(size, BILINEAR)`` of an (H, W) or (H, W, C) uint8
+    array, equal to PIL's output: its taps, its fixed-point weights and its
+    rounding, horizontal pass first, each pass skipped when its extent is
+    unchanged. Each output reads at most 2 * ceil(scale) + 1 inputs an axis,
+    so the work grows with the output, not with (out, in) matrices as in
+    :func:`resize_pil`. Runs on the host, without PIL."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_pil_u8_host takes uint8, got {img.dtype}")
+    out_h, out_w = shape_hw
+    # (C, H, W) int32: a sum of 8-bit values times weights that sum to
+    # 2**22 stays below 2**31
+    x = np.moveaxis(img.reshape(img.shape[0], img.shape[1], -1), -1, 0)
+    x = np.ascontiguousarray(x).astype(np.int32)
+    half = 1 << (_PIL_PRECISION_BITS - 1)
+    if x.shape[2] != out_w:
+        idx, weights = _pil_u8_taps(x.shape[2], out_w)
+        acc = np.full(x.shape[:2] + (out_w,), half, np.int32)
+        for col in range(idx.shape[1]):
+            acc += x[:, :, idx[:, col]] * weights[:, col].astype(np.int32)
+        x = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255)
+    if x.shape[1] != out_h:
+        idx, weights = _pil_u8_taps(x.shape[1], out_h)
+        acc = np.full((x.shape[0], out_h, x.shape[2]), half, np.int32)
+        for col in range(idx.shape[1]):
+            acc += (x[:, idx[:, col], :]
+                    * weights[:, col, None].astype(np.int32))
+        x = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255)
+    return np.moveaxis(x.astype(np.uint8), 0, -1).reshape(
+        (out_h, out_w) + img.shape[2:])

@@ -20,3 +20,16 @@ THRESHOLD_SPARSE = 0.02
 THRESHOLD_PIXELS_RELATIVE = 0.02
 BASE_ZOOM = 1.0
 THRESHOLD_AREA = 0.02
+
+
+def zoom_ladder(depth: int):
+    """Depth-N zoom-in schedule ending at the finest 0.0625 level: the
+    demos' ``np.linspace(0.5, 0.0625, 4)`` over any depth. Depth 1 pins to
+    the finest level (``linspace(..., num=1)`` would give the coarse 0.5)."""
+    import numpy as np
+
+    if depth < 1:
+        raise ValueError(f"zoom depth must be at least 1, got {depth}")
+    if depth == 1:
+        return [0.0625]
+    return [float(z) for z in np.linspace(0.5, 0.0625, depth)]

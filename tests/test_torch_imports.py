@@ -33,7 +33,7 @@ def test_port_imports_nothing_of_jax_pil_or_cotr_tpu():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 27, proc.stdout
+    assert n_modules >= 38, proc.stdout
 
 
 #: the squad engine's slice: each imports alone, with the JAX side blocked
@@ -51,52 +51,68 @@ import importlib, importlib.abc, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "cotr_tpu"):
+        blocked = ["jax", "jaxlib", "flax", "optax", "orbax", "cotr_tpu"]
+        if "--no-pil" in sys.argv:
+            blocked.append("PIL")
+        if name.split(".")[0] in blocked:
             raise ImportError("blocked for this test: " + name)
 
 sys.meta_path.insert(0, Block())
 import numpy as np
-mod = importlib.import_module(sys.argv[1])
-if sys.argv[1] == "cotr_tpu_torch.inference.grouped":
-    # run the host side once, native squad formation included
-    t = 50
-    rng = np.random.RandomState(0)
-    loc = np.stack([rng.uniform(0, 300, t), rng.uniform(0, 200, t)], 1)
-    sq, pilots = mod.form_squads(loc, loc, np.ones(t, bool), 0.25, 0.25,
-                                 (200, 300), (200, 300), 8,
-                                 np.random.RandomState(1))
-    assert (sq >= 0).all() and len(pilots) >= 1
-if sys.argv[1] == "cotr_tpu_torch.inference.triangulate":
-    corr = np.random.RandomState(0).uniform(0, 16, (12, 4))
-    assert mod.triangulate_corr(corr, (16, 16), (16, 16)).shape == (16, 16, 2)
-if sys.argv[1] == "cotr_tpu_torch.inference":
-    assert mod.FasterSparseEngine.__mro__[1] is mod.SparseEngine
-if sys.argv[1] == "cotr_tpu_torch.training.optim":
-    import torch
-    w = torch.nn.Parameter(torch.ones(3))
-    opt = mod.Optimizer(mod.TrainConfig(), {"transformer.w": w})
-    w.grad = torch.ones(3)
-    opt.step()
-    assert int(opt.count) == 1 and float(w[0]) < 1.0
-if sys.argv[1] == "cotr_tpu_torch.training.loss":
-    import torch
-    assert float(mod.masked_mse(torch.ones(1, 2, 2),
-                                torch.zeros(1, 2, dtype=torch.bool))) == 0.0
-if sys.argv[1] == "cotr_tpu_torch.models.torch_convert":
-    assert mod._reference_key("transformer.dec0.cross_attn.k_proj.bias") == (
-        "transformer.decoder.layers.0.multihead_attn.in_proj_bias", 1)
-print("imported", sys.argv[1])
+for name in sys.argv[1].split(","):
+    mod = importlib.import_module(name)
+    if name == "cotr_tpu_torch.inference.grouped":
+        # run the host side once, native squad formation included
+        t = 50
+        rng = np.random.RandomState(0)
+        loc = np.stack([rng.uniform(0, 300, t), rng.uniform(0, 200, t)], 1)
+        sq, pilots = mod.form_squads(loc, loc, np.ones(t, bool), 0.25, 0.25,
+                                     (200, 300), (200, 300), 8,
+                                     np.random.RandomState(1))
+        assert (sq >= 0).all() and len(pilots) >= 1
+    if name == "cotr_tpu_torch.inference.triangulate":
+        corr = np.random.RandomState(0).uniform(0, 16, (12, 4))
+        assert mod.triangulate_corr(corr, (16, 16), (16, 16)).shape == (16, 16, 2)
+    if name == "cotr_tpu_torch.inference":
+        assert mod.FasterSparseEngine.__mro__[1] is mod.SparseEngine
+    if name == "cotr_tpu_torch.training.optim":
+        import torch
+        w = torch.nn.Parameter(torch.ones(3))
+        opt = mod.Optimizer(mod.TrainConfig(), {"transformer.w": w})
+        w.grad = torch.ones(3)
+        opt.step()
+        assert int(opt.count) == 1 and float(w[0]) < 1.0
+    if name == "cotr_tpu_torch.training.loss":
+        import torch
+        assert float(mod.masked_mse(torch.ones(1, 2, 2),
+                                    torch.zeros(1, 2, dtype=torch.bool))) == 0.0
+    if name == "cotr_tpu_torch.data.synthetic":
+        import os, tempfile
+        path = os.path.join(tempfile.mkdtemp(), "tex.npy")
+        np.save(path, np.random.RandomState(0).randint(
+            0, 256, (300, 280, 3)).astype(np.uint8))
+        ds = mod.SyntheticHomographyDataset([path], num_kp=8, proc_textures=1,
+                                            tex_aug=True)
+        assert ds[0]["image"].shape == (256, 512, 3)
+        assert ds[1]["image"].dtype == np.uint8
+    if name == "cotr_tpu_torch.tools.eval_synthetic_pair":
+        img = np.random.RandomState(0).randint(0, 256, (40, 40, 3))
+        h, b = mod.warp_for_seed(img.astype(np.uint8), 0, 0.15, "cpu")
+        assert b.shape == (40, 40, 3) and h.shape == (3, 3)
+    if name == "cotr_tpu_torch.models.torch_convert":
+        assert mod._reference_key("transformer.dec0.cross_attn.k_proj.bias") == (
+            "transformer.decoder.layers.0.multihead_attn.in_proj_bias", 1)
+    print("imported", name)
 """
 
 
-def _run_blocked(module):
+def _run_blocked(module, *flags):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     site_dirs = [p for p in sys.path if p.endswith("-packages")]
     env["PYTHONPATH"] = os.pathsep.join([_ROOT] + site_dirs)
     return subprocess.run([sys.executable, "-S", "-c", _BLOCKED_PROBE,
-                           module], env=env, cwd=_ROOT, capture_output=True,
-                          text=True, timeout=180)
+                           module, *flags], env=env, cwd=_ROOT,
+                          capture_output=True, text=True, timeout=180)
 
 
 def test_squad_modules_import_with_jax_flax_and_cotr_tpu_blocked():
@@ -124,7 +140,30 @@ def test_training_modules_import_with_jax_optax_orbax_and_cotr_tpu_blocked():
         assert f"imported {module}" in proc.stdout
 
 
+#: the synthetic training slice, blocked the same way and without PIL:
+#: the card's machine has none, so textures come as .npy files
+_SYNTHETIC_MODULES = ["cotr_tpu_torch.data",
+                      "cotr_tpu_torch.data.dataset",
+                      "cotr_tpu_torch.data.synthetic",
+                      "cotr_tpu_torch.data.loader",
+                      "cotr_tpu_torch.ops.geometry_cv",
+                      "cotr_tpu_torch.utils.misc",
+                      "cotr_tpu_torch.utils.profiling",
+                      "cotr_tpu_torch.tools.train_synthetic",
+                      "cotr_tpu_torch.tools.eval_synthetic_pair"]
+
+
+def test_synthetic_modules_import_and_run_with_jax_pil_and_cotr_tpu_blocked():
+    proc = _run_blocked(",".join(_SYNTHETIC_MODULES), "--no-pil")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for module in _SYNTHETIC_MODULES:
+        assert f"imported {module}" in proc.stdout
+
+
 def test_the_block_really_blocks():
     proc = _run_blocked("cotr_tpu.inference.grouped")
+    assert proc.returncode != 0
+    assert "blocked for this test" in proc.stderr
+    proc = _run_blocked("PIL.Image", "--no-pil")
     assert proc.returncode != 0
     assert "blocked for this test" in proc.stderr
