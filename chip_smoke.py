@@ -7,9 +7,10 @@ NVIDIA card.
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build, both at once, into build/: the attention kernels
-   (csrc/attention.cu, nvcc, sm_90a) and the squad formation
-   (csrc/squads.cpp, the host C++ compiler); the native squad formation
+2. build, all at once, into build/: the attention kernels
+   (csrc/attention.cu, nvcc, sm_90a), the squad formation
+   (csrc/squads.cpp) and the MegaDepth data path's loops (csrc/depth.cpp),
+   the last two with the host C++ compiler; the native squad formation
    must equal the numpy scan exactly on 10,000 generated tasks;
 3. the kernels (the tile kernel and the row kernel behind one wrapper) vs
    their plain version on the card at the main paths' shapes,
@@ -63,7 +64,26 @@ Phases (any failure exits non-zero):
     generated 512 x 512 image (``[synthetic-eval]``): three warp seeds, a
     12 x 12 grid, ``FasterSparseEngine`` with ``max_load`` 256, zoom depth
     4, the painted overlay; in bfloat16 and float32;
-16. one JSON line describing each kernel, then the device line last.
+16. the MegaDepth path on a generated COLMAP scene (48 views of
+    768 x 1024: a tilted plane and two rectangles in front of it, ``.npy``
+    images and COLMAP ``.bin`` depths, repeated as 4 scenes for the
+    training split; ``tools/generated_scene.py``):
+    ``[megadepth-data]``, the native ``synth_corrs``, ``count_valid_depth``
+    and ``parse_images_txt`` against the numpy paths, samples a second of
+    ``CotrDataset`` (host layout and ``device_synth``) and
+    ``CotrZoomDataset`` on one thread and through ``PrefetchLoader`` with
+    the twin's workers, the bytes of a batch in each layout;
+17. ``[device-synth]``: one candidate batch of 24 synthesized on the card
+    and on the CPU from the same scores; then train steps on it under
+    ``set_sync_debug_mode("error")``, launching no attention kernel;
+18. ``[megadepth-train]``: the train twin (``tools/train_cotr.py``) from
+    the flagship, 20 float32 steps in the host layout with a validation
+    every 10, then 20 with ``--device_synth yes``;
+19. ``[megadepth-eval]``: the eval twin (``tools/eval_megadepth.py``),
+    bfloat16, 4 pairs of the validation split, a 32 x 32 grid, zoom depth
+    3, ``FasterSparseEngine``; then one pair at 16 x 16 through
+    ``SparseEngine`` (``--faster_infer no``);
+20. one JSON line describing each kernel, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -172,6 +192,29 @@ SYNTH_IMAGE_BATCHES = 5
 SYNTH_STEPS = 60
 SYNTH_VALID_ITER = 30
 SYNTH_RESUME_STEPS = 70
+# the MegaDepth path: a generated scene of 48 views, 24 of them the
+# validation split (one batch of 24), repeated as 4 scenes for the training
+# split (192 queries: 8 batches a pass, where one scene would restart the
+# loader every other step); the twin's settings (batch 24, 100
+# correspondences both ways)
+MD_VIEWS = 48
+MD_VAL_VIEWS = 24
+MD_SCENES = 4
+MD_HW = (768, 1024)
+MD_ONE_THREAD_SAMPLES = 24
+MD_LOADER_BATCHES = 4
+MD_STEPS = 20
+MD_VALID_ITER = 10
+# the steps whose median is reported: after the first 5 (cuDNN's choices,
+# the allocator, the loader's first batch)
+MD_STEADY_FROM = 5
+# device synthesis, card vs CPU, float32: the same products in other
+# orders; a candidate within this of a decision's edge (|z_d - z_proj|
+# near 0.5, a coordinate near a frame bound) may fall either way
+SYNTH_PX_TOL = 1e-3
+SYNTH_EDGE = 1e-4
+MD_SYNTH_STEPS = 8
+MD_EVAL_PAIRS = 4
 # a resumed step vs the unbroken one: the same kernels on the same values,
 # but for cuDNN's and cuBLAS's freedom in the order of a sum; one step moves
 # a weight by about the rate, 1e-4
@@ -305,19 +348,21 @@ def exp_rate_per_s() -> float:
 
 
 def phase_build(attention, native, grouped) -> dict:
-    """Both sources at once, each by its own compiler; then the native
+    """The three sources at once, each by its own compiler; then the native
     squad formation against the numpy scan."""
-    def timed(build):
+    def timed(build, *args):
         t0 = time.perf_counter()
-        return build(), time.perf_counter() - t0
+        return build(*args), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(timed, mod.build_library)
-                for mod in (attention, native)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(timed, attention.build_library)]
+        jobs += [pool.submit(timed, native.build_library, name)
+                 for name in native.SOURCES]
         built = [job.result() for job in jobs]
     attention._library()
-    native._library()
+    for name in native.SOURCES:
+        native._library(name)
     seconds = time.perf_counter() - t0
     for path, secs in built:
         log(f"[build] {os.path.relpath(path, ROOT)} in {secs:.1f} s")
@@ -1495,6 +1540,329 @@ def phase_synthetic_eval(attention, eval_twin, zoom_ladder) -> dict:
     return out
 
 
+# ------------------------------------------------------- the MegaDepth path
+
+def megadepth_argv(config: str, out_dir: str, *extra) -> list:
+    """The train twin's command line of ``[megadepth-train]``: its defaults
+    (float32, batch 24, 100 correspondences both ways, dropout 0.1, half the
+    host's cores as loader workers) from the flagship."""
+    return ["--dataset_config", config, "--confirm", "no",
+            "--load_weights_path", FLAGSHIP, "--max_iter", str(MD_STEPS),
+            "--valid_iter", str(MD_VALID_ITER), "--out_dir", out_dir, *extra]
+
+
+def phase_megadepth_data(md, config: str) -> tuple:
+    """The native functions against their numpy paths on the scene; samples
+    a second of the three datasets on one thread and through the twin's
+    loader; the bytes of one batch in each layout. Returns (record, the
+    last candidate-layout batch)."""
+    data_cfg = md.train_twin.data_config(
+        md.train_twin.build_parser().parse_args(["--dataset_config", config]))
+    sdd = data_cfg.scenes_name_list[0]
+    scene = md.Reader.read_sfm_scene_given_valid_list_path(
+        sdd["scene_dir"], sdd["image_dir"], sdd["depth_dir"],
+        data_cfg.valid_list_json, "no_crop")
+    a, b = scene[0], scene[3]
+    ms = {}
+    t0 = time.perf_counter()
+    native_rows = md.compute_corrs(a, b, impl="native")
+    ms["synth_corrs_native"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    numpy_rows = md.compute_corrs(a, b, impl="numpy")
+    ms["synth_corrs_numpy"] = (time.perf_counter() - t0) * 1e3
+    corrs_equal = np.array_equal(native_rows, numpy_rows.astype(np.float32))
+    counts_equal = all(md.native.count_valid_depth(cap.depth_map)
+                       == np.count_nonzero(cap.depth_map > 0)
+                       for cap in scene.captures)
+    images_txt = os.path.join(sdd["scene_dir"], "images.txt")
+    t0 = time.perf_counter()
+    ids, _, qt, names = md.native.parse_images_txt(images_txt)
+    ms["parse_images_txt_native"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    metas = md.read_images_meta(images_txt, sdd["image_dir"])
+    ms["parse_images_txt_python"] = (time.perf_counter() - t0) * 1e3
+    parse_equal = (list(ids) == list(metas) and all(
+        np.array_equal(m.t.translation_vector, row[4:].astype(np.float32))
+        and m.image_path == os.path.join(sdd["image_dir"], name)
+        for m, row, name in zip(metas.values(), qt, names)))
+    log(f"[megadepth-data] {len(scene)} views of "
+        f"{a.image.shape[0]}x{a.image.shape[1]}: "
+        f"synth_corrs of a full-frame pair, {len(native_rows)} rows: native "
+        f"{ms['synth_corrs_native']:.1f} ms, numpy "
+        f"{ms['synth_corrs_numpy']:.1f} ms, equal (numpy rounded to "
+        f"float32): {corrs_equal}; count_valid_depth equal on every view: "
+        f"{counts_equal}; parse_images_txt native "
+        f"{ms['parse_images_txt_native']:.2f} ms, Python "
+        f"{ms['parse_images_txt_python']:.2f} ms, equal: {parse_equal}")
+    if not (corrs_equal and counts_equal and parse_equal
+            and len(native_rows) > 1000):
+        raise AssertionError("[megadepth-data] a native function differs "
+                             "from its numpy path")
+
+    workers = max((os.cpu_count() or 2) // 2, 2)
+    datasets = {
+        "host": md.CotrDataset(data_cfg, "train", seed=0),
+        "device_synth": md.CotrDataset(data_cfg, "train", seed=0,
+                                       device_synth=True),
+        "zoom": md.CotrZoomDataset(dataclasses.replace(
+            data_cfg, crop_cam="no_crop"), "train", seed=0)}
+    layouts, last = {}, {}
+    for name, ds in datasets.items():
+        t0 = time.perf_counter()
+        for i in range(MD_ONE_THREAD_SAMPLES):
+            ds[i % len(ds)]
+        one = (time.perf_counter() - t0) / MD_ONE_THREAD_SAMPLES
+        loader = md.PrefetchLoader(ds, SYNTH_BATCH, num_workers=workers,
+                                   seed=0)
+        waits = []
+        t0 = time.perf_counter()
+        while len(waits) < MD_LOADER_BATCHES:  # epochs of len(ds) // 24
+            it = iter(loader)
+            while len(waits) < MD_LOADER_BATCHES:
+                t1 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    break
+                waits.append(time.perf_counter() - t1)
+                last[name] = batch
+            it.close()
+        wall = time.perf_counter() - t0
+        layouts[name] = dict(
+            ms_per_sample_one_thread=one * 1e3,
+            samples_per_s_loader=MD_LOADER_BATCHES * SYNTH_BATCH / wall,
+            loader_workers=workers, loader_waits_s=waits,
+            batch_bytes=int(sum(v.nbytes for v in last[name].values())),
+            batch_shapes={k: [list(v.shape), str(v.dtype)]
+                          for k, v in last[name].items()})
+        log(f"[megadepth-data] {name}: one thread {one * 1e3:.1f} ms a "
+            f"sample ({1.0 / one:.1f} samples/s); PrefetchLoader, {workers} "
+            f"workers, {len(ds)} queries an epoch: {MD_LOADER_BATCHES} "
+            f"batches of {SYNTH_BATCH} in {wall:.2f} s, "
+            f"{layouts[name]['samples_per_s_loader']:.1f} samples/s (waits "
+            f"{np.round(waits, 3).tolist()} s); one batch "
+            f"{layouts[name]['batch_bytes'] / 1e6:.2f} MB")
+    record = dict(views=len(scene), synth_corrs_rows=len(native_rows),
+                  ms=ms, layouts=layouts)
+    return record, last["device_synth"]
+
+
+def phase_device_synth(attention, md, mods, cand_batch: dict,
+                       out_dir: str) -> dict:
+    """One candidate batch of 24 synthesized on the card and on the CPU
+    from the same scores; then train steps on it from the flagship's
+    backbone, the steady ones under the sync debug mode."""
+    num_kp = mods.TrainConfig().num_kp
+    card = {k: md.upload(v, "cuda") for k, v in cand_batch.items()}
+    host = {k: md.upload(v, "cpu") for k, v in cand_batch.items()}
+    scores = torch.rand(host["cand"].shape[:2],
+                        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = md.synth_supervision_batch(card, num_kp, scores=scores.cuda())
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = md.synth_supervision_batch(host, num_kp, scores=scores)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    uv, z_proj, zd, valid = (t.cpu() for t in md.project_candidates(card))
+    uv_h, z_proj_h, zd_h, valid_h = md.project_candidates(host)
+    h, w = host["qdepth"].shape[1:]
+    edge = (((zd_h - z_proj_h).abs() - 0.5).abs() < SYNTH_EDGE)
+    for coord, hi in ((uv_h[..., 0], w - 1), (uv_h[..., 1], h - 1)):
+        edge |= (coord.abs() < SYNTH_EDGE) | ((coord - hi).abs() < SYNTH_EDGE)
+    flipped = valid != valid_h
+    unexplained = int((flipped & ~edge).sum())
+    same = ~flipped.any(dim=1)  # samples whose picks must then agree
+    canvas_equal = torch.equal(got[0].cpu(), want[0])
+    px = torch.tensor([2.0 * 256, 256.0])
+    err = max(float(((got[i].cpu() - want[i])[same] * px).abs().max())
+              for i in (1, 2))
+    weights_equal = torch.equal(got[3].cpu()[same], want[3][same])
+    record = dict(candidates=int(valid_h.numel()),
+                  valid=int(valid_h.sum()), edge=int(edge.sum()),
+                  flipped=int(flipped.sum()), unexplained=unexplained,
+                  samples_compared=int(same.sum()), max_px_err=err,
+                  weights_equal=weights_equal, canvas_equal=canvas_equal,
+                  card_ms=card_ms, cpu_ms=cpu_ms,
+                  weight_mean=float(want[3].mean()))
+    log(f"[device-synth] batch {valid_h.shape[0]}, {valid_h.shape[1]} "
+        f"candidates a sample, {record['valid']} of {record['candidates']} "
+        f"valid: card vs CPU, same scores: {record['flipped']} validity "
+        f"flips, {record['edge']} candidates within {SYNTH_EDGE} of an edge, "
+        f"{unexplained} flips away from one; on the "
+        f"{record['samples_compared']} samples without a flip: corrs max "
+        f"err {err:.2e} px (tol {SYNTH_PX_TOL}), weights equal "
+        f"{weights_equal}; canvas equal {canvas_equal}; mean weight "
+        f"{record['weight_mean']:.3f}; one call {card_ms:.2f} ms on the card "
+        f"(first), {cpu_ms:.2f} ms on the CPU")
+    if not (unexplained == 0 and err <= SYNTH_PX_TOL and weights_equal
+            and canvas_equal and record["samples_compared"] > 0):
+        raise AssertionError("[device-synth] the card disagrees with the CPU")
+
+    trainer = make_trainer(mods, mods.COTRConfig(),
+                           mods.TrainConfig(valid_iter=10 ** 9), card,
+                           out_dir)
+    run = run_steps(attention, trainer, MD_SYNTH_STEPS,
+                    "device-synth, train steps on the candidate batch")
+    record["train"] = run
+    del trainer
+    torch.cuda.empty_cache()
+    return record
+
+
+class TimedUpload:
+    """Installed over a Trainer's ``_batch``: the time of each upload. A
+    copy from pageable memory waits for the work queued before it on the
+    card and holds the host until it is done, so the card is drained first
+    and the clock then reads the copy alone."""
+
+    def __init__(self, trainer):
+        self.fn = trainer._batch
+        self.seconds = []
+        trainer._batch = self
+
+    def __call__(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(batch)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def run_cotr_twin(attention, md, argv: list, tag: str) -> dict:
+    """The train twin's trainer, built by its own functions from ``argv``,
+    trained with the spies installed and the counts set to 0 before."""
+    args = md.train_twin.build_parser().parse_args(argv)
+    run_dir = md.train_twin.run_dir_of(args)
+    train_ds, val_ds = md.train_twin.build_datasets(args)
+    trainer = md.train_twin.build_trainer(args, train_ds, val_ds, run_dir,
+                                          device="cuda")
+    loader = TimedLoader(trainer.train_loader)
+    trainer.train_loader = loader
+    upload = TimedUpload(trainer)
+    spy = TrainSpy(attention, trainer)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(attention, {}) as record:
+        trainer.train()
+    losses, ms = spy.finish()
+    steady = ms[MD_STEADY_FROM:]
+    n_steps = len(losses)
+    record.update(
+        steps=n_steps, losses=losses,
+        ms_per_step=statistics.median(steady),
+        loader_wait_s=loader.wait_s, loader_first_batch_s=loader.first_wait_s,
+        loader_wait_share=loader.wait_s / record["wall_s"],
+        loader_waits_s=loader.waits,
+        upload_ms=statistics.median(upload.seconds[:n_steps]) * 1e3,
+        step_launches=spy.step_launches, validations=spy.validations,
+        checkpoint_write_s=spy.checkpoint_s,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        train_queries=len(train_ds), val_queries=len(val_ds))
+    log(f"[{tag}] {n_steps} steps in {record['wall_s']:.1f} s wall: "
+        f"{record['ms_per_step']:.1f} ms a step (median after the first "
+        f"{MD_STEADY_FROM}; loader wait and upload included), loop waiting "
+        f"on the loader {loader.wait_s:.2f} s ({record['loader_wait_share']:.1%}"
+        f" of the wall; {loader.first_wait_s:.2f} s of it for each pass's "
+        f"first batch, a pass being {len(train_ds) // args.batch_size} "
+        f"batches), upload {record['upload_ms']:.2f} ms a step (host), peak "
+        f"memory {record['peak_memory_gb']:.2f} GB, kernel launches in the "
+        f"steps {spy.step_launches}")
+    log(f"[{tag}] losses {np.round(losses, 5).tolist()}")
+    for i, v in enumerate(spy.validations):
+        log(f"[{tag}] validation {i}: {v['wall_s'] * 1e3:.1f} ms wall, "
+            f"val_loss {v['val_loss']:.6f}, launches "
+            + ", ".join(f"({r['b']}, {r['lq']}) {r['dtype']} {r['launches']}"
+                        for r in v["shape_counts"]))
+    if n_steps != MD_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"[{tag}] {n_steps} steps, or a loss is not "
+                             f"finite")
+    if spy.step_launches != 0:
+        raise AssertionError(f"[{tag}] the train steps launched the "
+                             f"forward-only kernel {spy.step_launches} times")
+    n_val = len(val_ds) // args.batch_size
+    want = {(args.batch_size, 512): args.enc_layers * n_val,
+            (args.batch_size, 2 * args.num_kp): args.dec_layers * n_val}
+    if len(spy.validations) != MD_STEPS // MD_VALID_ITER or n_val < 1:
+        raise AssertionError(f"[{tag}] {len(spy.validations)} validations "
+                             f"of {n_val} batches")
+    for v in spy.validations:
+        got = {(r["b"], r["lq"]): r["launches"] for r in v["shape_counts"]}
+        if got != want or not np.isfinite(v["val_loss"]):
+            raise AssertionError(f"[{tag}] a validation launched {got}, "
+                                 f"expected {want}, val_loss "
+                                 f"{v['val_loss']}")
+    del trainer
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_megadepth_train(attention, md, config: str, out_dir: str) -> dict:
+    """The train twin from the flagship: the host layout, then
+    ``--device_synth yes`` in a fresh out_dir."""
+    host = run_cotr_twin(attention, md, megadepth_argv(
+        config, os.path.join(out_dir, "md_host")), "megadepth-train, host")
+    cand = run_cotr_twin(attention, md, megadepth_argv(
+        config, os.path.join(out_dir, "md_cand"), "--device_synth", "yes"),
+        "megadepth-train, device_synth")
+    return dict(host=host, device_synth=cand,
+                steps_only=dict(launches=host["step_launches"]
+                                + cand["step_launches"], shape_counts=[]),
+                validation=dict(
+                    launches=sum(r["launches"] for run in (host, cand)
+                                 for v in run["validations"]
+                                 for r in v["shape_counts"]),
+                    shape_counts=merged_shape_counts(
+                        host["validations"] + cand["validations"])))
+
+
+def phase_megadepth_eval(attention, md, config: str, out_dir: str) -> dict:
+    """The eval twin's sweep, bfloat16, from the flagship: 4 pairs at a
+    32 x 32 grid through ``FasterSparseEngine``, then 1 pair at 16 x 16
+    through ``SparseEngine``."""
+    runs = {}
+    for name, extra, kernel in (
+            ("faster", ["--pairs", str(MD_EVAL_PAIRS), "--grid", "32",
+                        "--pair_batch", str(MD_EVAL_PAIRS)], "tile"),
+            ("sparse", ["--pairs", "1", "--grid", "16",
+                        "--faster_infer", "no"], "row")):
+        args = md.eval_twin.parse_args(
+            ["--dataset_config", config, "--load_weights_path", FLAGSHIP,
+             "--dtype", "bfloat16", "--zoom_depth", "3",
+             "--out", os.path.join(out_dir, f"eval_{name}.json"), *extra])
+        ds = md.MegadepthDataset(md.eval_twin.data_config(config), "val")
+        engine = md.eval_twin.build_engine(args, device="cuda")
+        with counted(attention, {}) as record:
+            result, all_epe = md.eval_twin.evaluate(
+                engine, ds, args.pairs, args.grid,
+                md.zoom_ladder(args.zoom_depth), args.pair_batch)
+        variants = {}
+        for row in record["shape_counts"]:
+            kind = attention.choose_kernel(row["lq"], row["s"],
+                                           getattr(torch, row["dtype"]))
+            variants[kind] = variants.get(kind, 0) + row["launches"]
+        record.update(result=result, launches_by_kernel=variants,
+                      per_pair_epe=[dict(valid=len(e),
+                                         mean=float(np.mean(e)),
+                                         median=float(np.median(e)))
+                                    for e in all_epe])
+        log(f"[megadepth-eval] {name}: {json.dumps(result)}; "
+            f"{record['wall_s']:.2f} s wall; launches by kernel {variants}")
+        log_counts("megadepth-eval", record)
+        if not (len(all_epe) == args.pairs
+                and all(len(e) >= 10 and np.isfinite(e).all()
+                        for e in all_epe)):
+            raise AssertionError(f"[megadepth-eval] {name}: "
+                                 f"{len(all_epe)} pairs evaluated of "
+                                 f"{args.pairs}, or a non-finite EPE")
+        if variants.get(kernel, 0) < 1:
+            raise AssertionError(f"[megadepth-eval] {name}: the {kernel} "
+                                 f"kernel was not launched")
+        runs[name] = record
+        del engine
+        torch.cuda.empty_cache()
+    return runs
+
+
 def merged_shape_counts(records) -> list:
     total = {}
     for record in records:
@@ -1593,6 +1961,46 @@ def main() -> int:
                                             datasets)
         del datasets
     synth_eval = phase_synthetic_eval(attention, eval_twin, zoom_ladder)
+
+    from cotr_tpu_torch.data import dataset as md_dataset
+    from cotr_tpu_torch.data import device_synth
+    from cotr_tpu_torch.data.colmap import (ColmapWithDepthAsciiReader,
+                                            read_images_meta)
+    from cotr_tpu_torch.data.megadepth import MegadepthDataset
+    from cotr_tpu_torch.tools import eval_megadepth, train_cotr
+    from cotr_tpu_torch.tools.generated_scene import make_scene
+    from cotr_tpu_torch.training.trainer import upload
+
+    # the MegaDepth path's entry points
+    md = types.SimpleNamespace(
+        native=native, Reader=ColmapWithDepthAsciiReader,
+        read_images_meta=read_images_meta,
+        compute_corrs=md_dataset.compute_corrs,
+        CotrDataset=md_dataset.CotrDataset,
+        CotrZoomDataset=md_dataset.CotrZoomDataset,
+        MegadepthDataset=MegadepthDataset, PrefetchLoader=PrefetchLoader,
+        upload=upload,
+        synth_supervision_batch=device_synth.synth_supervision_batch,
+        project_candidates=device_synth.project_candidates,
+        train_twin=train_cotr, eval_twin=eval_megadepth,
+        zoom_ladder=zoom_ladder)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(ROOT, "build")) as md_dir:
+        t0 = time.perf_counter()
+        config = make_scene(os.path.join(md_dir, "scene"), views=MD_VIEWS,
+                            height=MD_HW[0], width=MD_HW[1],
+                            val_views=MD_VAL_VIEWS, scenes=MD_SCENES)
+        scene_s = time.perf_counter() - t0
+        log(f"[megadepth-data] generated scene: {MD_VIEWS} views of "
+            f"{MD_HW[0]}x{MD_HW[1]} ({MD_VAL_VIEWS} in the validation split), "
+            f"repeated as {MD_SCENES} scenes for the training split, written "
+            f"in {scene_s:.1f} s")
+        md_data, cand_batch = phase_megadepth_data(md, config)
+        md_data["scene_s"] = scene_s
+        md_synth = phase_device_synth(attention, md, mods, cand_batch,
+                                      md_dir)
+        md_train = phase_megadepth_train(attention, md, config, md_dir)
+        md_eval = phase_megadepth_eval(attention, md, config, md_dir)
     # each path's own run; the comparison runs beside them (scan engine on
     # the squad phase's queries, the serial calls, the einsum evaluation)
     # are left out, and so is serving the trained weights, which repeats
@@ -1608,7 +2016,16 @@ def main() -> int:
              "synthetic validation, 2 x 4 batches of 24":
                  synth_train["validation"],
              "eval twin, bfloat16, 3 seeds + overlay": synth_eval["bfloat16"],
-             "eval twin, float32, 3 seeds + overlay": synth_eval["float32"]}
+             "eval twin, float32, 3 seeds + overlay": synth_eval["float32"],
+             "train steps on a candidate batch (the einsum path)":
+                 md_synth["train"],
+             "MegaDepth train twin, 20 + 20 steps (the einsum path)":
+                 md_train["steps_only"],
+             "MegaDepth validation, 2 + 2 batches of 24":
+                 md_train["validation"],
+             "MegaDepth eval twin, FasterSparseEngine, 4 pairs":
+                 md_eval["faster"],
+             "MegaDepth eval twin, SparseEngine, 1 pair": md_eval["sparse"]}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
 
@@ -1636,7 +2053,9 @@ def main() -> int:
                        eval_step=eval_step, checkpoint=checkpoint,
                        synthetic_loader=synth_loader,
                        synthetic_train=synth_train,
-                       synthetic_eval=synth_eval, kernels=kernels),
+                       synthetic_eval=synth_eval, megadepth_data=md_data,
+                       device_synth=md_synth, megadepth_train=md_train,
+                       megadepth_eval=md_eval, kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
         f"{squad['wall_s']:.3f} s; [multipair] wall "
@@ -1645,7 +2064,11 @@ def main() -> int:
         f"{train['lr_backbone']['ms_per_step']:.1f} ms with lr_backbone "
         f"1e-5, {train['bfloat16']['ms_per_step']:.1f} ms bfloat16; "
         f"[synthetic-train] {synth_train['main']['ms_per_step']:.1f} ms a "
-        f"step from the loader, bfloat16")
+        f"step from the loader, bfloat16; [megadepth-train] "
+        f"{md_train['host']['ms_per_step']:.1f} ms a step (host layout), "
+        f"{md_train['device_synth']['ms_per_step']:.1f} ms (device_synth), "
+        f"float32; [megadepth-eval] median EPE "
+        f"{md_eval['faster']['result']['epe_median']:.2f} px")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

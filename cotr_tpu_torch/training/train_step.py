@@ -16,6 +16,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from cotr_tpu_torch.config import TrainConfig
+from cotr_tpu_torch.data.device_synth import synth_supervision_batch
 from cotr_tpu_torch.models.cotr import COTRModel, init_weights
 from cotr_tpu_torch.ops.canvas import (canvas_from_crops_and_homographies,
                                        normalize_canvas)
@@ -53,17 +54,22 @@ def batch_canvas(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
                                               batch.get("photo"))
 
 
-def batch_views(batch: Dict[str, torch.Tensor], cfg: TrainConfig
+def batch_views(batch: Dict[str, torch.Tensor], cfg: TrainConfig,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
-    """(canvas, queries, targets, weights) from a batch: the ``image`` and
-    the ``crop`` + ``h_mat`` layouts, both with host-made ``queries`` and
-    ``targets`` (weights None)."""
+    """(canvas, queries, targets, weights) from any batch layout:
+
+    * ``image`` or ``crop`` + ``h_mat``, with host-made ``queries`` and
+      ``targets`` (weights None);
+    * ``cand`` + cameras + quantized depth: the supervision is synthesized
+      here on the device (``data.device_synth``), its selection scores drawn
+      from ``generator``; invalid picks carry weight 0.
+    """
     if "cand" in batch:
-        raise NotImplementedError(
-            "the 'cand' batch layout synthesizes its supervision with "
-            "data/device_synth.py (synth_supervision_batch), which is not "
-            "ported yet")
+        canvas, queries, targets, weights = synth_supervision_batch(
+            batch, cfg.num_kp, cfg.bidirectional, generator=generator)
+        return _prep_image(canvas), queries, targets, weights
     return batch_canvas(batch), batch["queries"], batch["targets"], None
 
 
@@ -84,15 +90,18 @@ def make_train_step(cfg: TrainConfig) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
     batch: tensors on the model's device, {'image': (B, 256, 512, 3),
-    'queries': (B, Q, 2), 'targets': (B, Q, 2)} or the crop layout of
-    :func:`batch_canvas`. metrics: ``loss``, ``corr_loss``, ``cycle_loss``
+    'queries': (B, Q, 2), 'targets': (B, Q, 2)}, the crop layout of
+    :func:`batch_canvas` or the candidate layout of :func:`batch_views`
+    (whose scores come from ``generator`` before the dropout masks do).
+    metrics: ``loss``, ``corr_loss``, ``cycle_loss``
     (device scalars), ``pred`` and ``target``, all detached."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
         model, optimizer = state.model, state.optimizer
         model.train()
-        canvas, queries, targets, weights = batch_views(batch, cfg)
+        canvas, queries, targets, weights = batch_views(
+            batch, cfg, generator=generator)
         optimizer.zero_grad()
         loss, metrics = cotr_loss(
             model, canvas, queries, targets, cycle_consis=cfg.cycle_consis,
@@ -109,12 +118,17 @@ def make_train_step(cfg: TrainConfig) -> Callable:
 def make_eval_step(cfg: TrainConfig) -> Callable:
     """Returns eval_step(model, batch) -> {'val_loss', 'pred'}: one
     deterministic forward without a gradient, so its attention goes through
-    the hand-written kernels on the card."""
+    the hand-written kernels on the card. A candidate-layout batch draws
+    its selection scores from a generator seeded 0 at every call."""
 
     @torch.no_grad()
     def eval_step(model: COTRModel, batch: Dict[str, torch.Tensor]):
         model.eval()
-        canvas, queries, targets, weights = batch_views(batch, cfg)
+        kw = {}
+        if "cand" in batch:
+            kw["generator"] = torch.Generator(
+                device=batch["cand"].device).manual_seed(0)
+        canvas, queries, targets, weights = batch_views(batch, cfg, **kw)
         pred = model(canvas, queries)
         if weights is None:
             val = ((pred - targets) ** 2).mean()

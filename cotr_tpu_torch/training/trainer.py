@@ -40,6 +40,28 @@ KEEP_KEYS = ("image", "queries", "targets", "crop", "h_mat", "photo",
              "flip", "skey")
 
 
+#: unsigned host dtypes torch computes little in: uploaded as the signed
+#: type of their width and widened on the device, bits kept
+_WIDEN = {np.dtype(np.uint16): (np.int16, torch.int32, 0xFFFF),
+          np.dtype(np.uint32): (np.int32, torch.int64, 0xFFFFFFFF)}
+
+
+def upload(array, device) -> torch.Tensor:
+    """One batch field (numpy or a tensor) on ``device``. uint16 (the
+    quantized depth) becomes int32 and uint32 (the sample key) int64 there,
+    so the step computes in types torch supports; the bytes sent stay the
+    narrow ones."""
+    if torch.is_tensor(array):
+        return array.to(device)
+    array = np.asarray(array)
+    if array.dtype not in _WIDEN:
+        return torch.as_tensor(array).to(device)
+    signed, wide, mask = _WIDEN[array.dtype]
+    bits = torch.from_numpy(
+        np.ascontiguousarray(array).view(signed).reshape(array.shape))
+    return bits.to(device).to(wide) & mask
+
+
 def _to_cpu(tree):
     if torch.is_tensor(tree):
         return tree.detach().cpu()
@@ -100,7 +122,7 @@ class Trainer:
         self._eval_step = make_eval_step(self.cfg)
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(batch[k]).to(self.device)
+        return {k: upload(batch[k], self.device)
                 for k in KEEP_KEYS if k in batch}
 
     # ----------------------------------------------------------- checkpoints

@@ -11,6 +11,10 @@ MAX_SIZE = 256
 CANVAS_H = MAX_SIZE
 CANVAS_W = 2 * MAX_SIZE
 
+#: kNN image retrieval: two captures are neighbours when this share of one
+#: reprojects consistently into the other (``data.scenes``)
+VALID_NN_OVERLAPPING_THRESH = 0.1
+
 #: ImageNet normalization applied to every canvas before the backbone.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)

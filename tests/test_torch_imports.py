@@ -54,11 +54,15 @@ class Block(importlib.abc.MetaPathFinder):
         blocked = ["jax", "jaxlib", "flax", "optax", "orbax", "cotr_tpu"]
         if "--no-pil" in sys.argv:
             blocked.append("PIL")
+        if "--no-image-libs" in sys.argv:
+            blocked += ["PIL", "imageio", "h5py"]
         if name.split(".")[0] in blocked:
             raise ImportError("blocked for this test: " + name)
 
 sys.meta_path.insert(0, Block())
 import numpy as np
+# the MegaDepth slice's run: a generated scene through its modules in turn
+megadepth = "--no-image-libs" in sys.argv
 for name in sys.argv[1].split(","):
     mod = importlib.import_module(name)
     if name == "cotr_tpu_torch.inference.grouped":
@@ -99,6 +103,41 @@ for name in sys.argv[1].split(","):
         img = np.random.RandomState(0).randint(0, 256, (40, 40, 3))
         h, b = mod.warp_for_seed(img.astype(np.uint8), 0, 0.15, "cpu")
         assert b.shape == (40, 40, 3) and h.shape == (3, 3)
+    if name == "cotr_tpu_torch.tools.generated_scene" and megadepth:
+        import json, os, tempfile
+        root = tempfile.mkdtemp()
+        config = mod.make_scene(root, views=4, height=48, width=64,
+                                val_views=2)
+        with open(config) as f:
+            raw = json.load(f)
+    if name == "cotr_tpu_torch.data.dataset" and megadepth:
+        from cotr_tpu_torch.data.megadepth import DataConfig
+        cfg = DataConfig(scenes_name_list=raw["scenes_name_list"],
+                         valid_list_json=raw["valid_list_json"],
+                         train_json=raw["train_json"],
+                         val_json=raw["val_json"], num_kp=8)
+        host = mod.CotrDataset(cfg, "train")[0]
+        cand = mod.CotrDataset(cfg, "train", device_synth=True)[1]
+        zoom_cfg = DataConfig(**dict(cfg.__dict__, crop_cam="no_crop",
+                                     need_rotation=True, max_rotation=10.0,
+                                     rotation_chance=1.0))
+        zoom = mod.CotrZoomDataset(zoom_cfg, "train")[2]
+        assert host["image"].shape == zoom["image"].shape == (256, 512, 3)
+        assert cand["qdepth"].dtype == np.uint16
+    if name == "cotr_tpu_torch.data.device_synth" and megadepth:
+        import torch
+        from cotr_tpu_torch.training.trainer import upload
+        batch = {k: upload(v[None], "cpu") for k, v in cand.items()}
+        out = mod.synth_supervision_batch(batch, 8,
+                                          generator=torch.Generator())
+        assert out[1].shape == (1, 16, 2)
+    if name == "cotr_tpu_torch.native" and megadepth:
+        assert mod.count_valid_depth(np.ones((3, 4), np.float32)) == 12
+    if name == "cotr_tpu_torch.tools.eval_megadepth" and megadepth:
+        from cotr_tpu_torch.data.megadepth import MegadepthDataset
+        ds = MegadepthDataset(mod.data_config(config), "val")
+        q, nn = ds.get_query_with_knn(0)
+        assert mod.prepare_pair(q, nn[0], 4)[0].shape == (48, 64, 3)
     if name == "cotr_tpu_torch.models.torch_convert":
         assert mod._reference_key("transformer.dec0.cross_attn.k_proj.bias") == (
             "transformer.decoder.layers.0.multihead_attn.in_proj_bias", 1)
@@ -160,6 +199,34 @@ def test_synthetic_modules_import_and_run_with_jax_pil_and_cotr_tpu_blocked():
         assert f"imported {module}" in proc.stdout
 
 
+#: the MegaDepth slice, blocked the same way and without PIL, imageio and
+#: h5py: the card's machine has none of them, so images are .npy and depths
+#: COLMAP .bin there. The scene is generated, read, sampled in all three
+#: dataset layouts and synthesized on the CPU.
+_MEGADEPTH_MODULES = ["cotr_tpu_torch.geometry",
+                      "cotr_tpu_torch.geometry.transforms",
+                      "cotr_tpu_torch.geometry.camera",
+                      "cotr_tpu_torch.geometry.projector",
+                      "cotr_tpu_torch.geometry.capture",
+                      "cotr_tpu_torch.native",
+                      "cotr_tpu_torch.tools.generated_scene",
+                      "cotr_tpu_torch.data.colmap",
+                      "cotr_tpu_torch.data.scenes",
+                      "cotr_tpu_torch.data.megadepth",
+                      "cotr_tpu_torch.data.dataset",
+                      "cotr_tpu_torch.data.device_synth",
+                      "cotr_tpu_torch.training.train_step",
+                      "cotr_tpu_torch.tools.train_cotr",
+                      "cotr_tpu_torch.tools.eval_megadepth"]
+
+
+def test_megadepth_modules_import_and_run_with_jax_and_image_libs_blocked():
+    proc = _run_blocked(",".join(_MEGADEPTH_MODULES), "--no-image-libs")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for module in _MEGADEPTH_MODULES:
+        assert f"imported {module}" in proc.stdout
+
+
 def test_the_block_really_blocks():
     proc = _run_blocked("cotr_tpu.inference.grouped")
     assert proc.returncode != 0
@@ -167,3 +234,7 @@ def test_the_block_really_blocks():
     proc = _run_blocked("PIL.Image", "--no-pil")
     assert proc.returncode != 0
     assert "blocked for this test" in proc.stderr
+    for module in ("PIL", "imageio", "h5py"):
+        proc = _run_blocked(module, "--no-image-libs")
+        assert proc.returncode != 0
+        assert "blocked for this test" in proc.stderr

@@ -229,10 +229,29 @@ def test_same_generator_state_gives_the_same_step_with_dropout(both):
 
 
 def test_cand_layout_is_not_ported_and_says_so(both):
-    batch = dict(_tensors(both["batches"]["image_uint8"]),
-                 cand=torch.zeros(2, 8, 2))
-    with pytest.raises(NotImplementedError, match="device_synth"):
-        port_ts.batch_views(batch, TrainConfig())
+    """The candidate layout was once refused here; it is ported now
+    (data.device_synth, held against the JAX package in
+    tests/test_torch_device_synth.py): its supervision comes out with
+    weights, and a batch without its camera fields says what is missing."""
+    image = _tensors(both["batches"]["image_uint8"])["image"]
+    cand = torch.zeros(2, 8, 3)
+    cand[:, :, :2] = 100.0
+    cand[:, :, 2] = 2.0
+    batch = dict(image=image, cand=cand,
+                 qdepth=torch.zeros(2, 256, 256, dtype=torch.int32),
+                 qscale=torch.ones(2), kinv_nn=torch.eye(3).expand(2, 3, 3),
+                 c2w_nn=torch.eye(4)[:3].expand(2, 3, 4),
+                 proj_q=torch.eye(4)[:3].expand(2, 3, 4),
+                 flip=torch.zeros(2))
+    canvas, queries, targets, weights = port_ts.batch_views(
+        batch, TrainConfig(num_kp=4), generator=torch.Generator())
+    assert canvas.shape == (2, 256, 512, 3) and canvas.dtype == torch.float32
+    assert queries.shape == targets.shape == (2, 8, 2)
+    # z_proj = 2 lands on a dequantized depth of 0: every pick is invalid
+    assert weights.shape == (2, 8) and not weights.any()
+    with pytest.raises(KeyError, match="kinv_nn"):
+        port_ts.batch_views({k: v for k, v in batch.items()
+                             if k != "kinv_nn"}, TrainConfig(num_kp=4))
 
 
 def test_create_train_state_draws_fresh_weights_from_the_generator():
