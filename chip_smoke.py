@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths, its demos and
+its checkpoint and accuracy tools once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -83,7 +83,24 @@ Phases (any failure exits non-zero):
     bfloat16, 4 pairs of the validation split, a 32 x 32 grid, zoom depth
     3, ``FasterSparseEngine``; then one pair at 16 x 16 through
     ``SparseEngine`` (``--faster_infer no``);
-20. one JSON line describing each kernel, then the device line last.
+20. ``[convert]``, after the checkpoint phase: the flagship written in the
+    reference's ``.pth.tar`` layout through the convert twin
+    (``cotr_tpu_torch.tools.convert_checkpoint --verify``), one forward
+    served from the ``.npz`` it wrote (equal to the flagship's), and the
+    publish twin from the training phase's ``Trainer`` checkpoint;
+21. ``[demos]``, after the MegaDepth phases: each demo twin's ``main``
+    (``cotr_tpu_torch.demos``) at full width in float32 on generated
+    ``.npy`` inputs: single pair with ``--densify`` (a 768 x 1024 pair, B a
+    known homography of A), face (68 fixed queries, a 480 x 640 pair),
+    homography (the annotated corners on a 4032 x 3024 image), wbs (100
+    annotated rows, ``areas=[1, 1]``: no dense seed pass), guided matching
+    and reconstruction (two views of the generated scene, their cameras,
+    ``--faster_infer yes``), each with its launches by shape;
+22. ``[eval-suite]``: the eval-suite twin (bfloat16, 4 generated images
+    and 4 procedural textures, 5 seeds, a 15 x 15 grid) and the
+    diagnose-tail twin at its defaults; the flagship file must be
+    byte-identical at the end;
+23. one JSON line describing each kernel, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -215,6 +232,14 @@ SYNTH_PX_TOL = 1e-3
 SYNTH_EDGE = 1e-4
 MD_SYNTH_STEPS = 8
 MD_EVAL_PAIRS = 4
+# the demos' generated inputs: chip_smoke's first serving pair, the
+# non-square one, and a portrait photograph of 12 megapixels, whose size
+# holds the homography demo's annotated corners
+DEMO_HW = (768, 1024)
+FACE_HW = (480, 640)
+PAINT_HW = (4032, 3024)
+# the eval-suite twin's seeds, as it takes them
+SUITE_SEEDS = "0,1,2,3,4"
 # a resumed step vs the unbroken one: the same kernels on the same values,
 # but for cuDNN's and cuBLAS's freedom in the order of a sum; one step moves
 # a weight by about the rate, 1e-4
@@ -555,6 +580,16 @@ def log_counts(tag: str, record: dict) -> None:
             f"S={row['s']:<4d} {row['dtype']}: {row['launches']}")
     if record["launches"] < 1:
         raise AssertionError(f"[{tag}] launched no attention kernel")
+
+
+def kernel_variants(attention, record: dict) -> dict:
+    """A counted run's launches by kernel: {"tile": n, "row": m}."""
+    variants = {}
+    for row in record["shape_counts"]:
+        kind = attention.choose_kernel(row["lq"], row["s"],
+                                       getattr(torch, row["dtype"]))
+        variants[kind] = variants.get(kind, 0) + row["launches"]
+    return variants
 
 
 def in_frame(corrs: np.ndarray, img_a, img_b) -> np.ndarray:
@@ -1510,11 +1545,7 @@ def phase_synthetic_eval(attention, eval_twin, zoom_ladder) -> dict:
         expected = sum(len(eval_twin.query_grid(
             512, 12, eval_twin.homography_for_seed(512, seed, 0.15))[0])
             for seed in seeds)
-        variants = {}
-        for row in record["shape_counts"]:
-            kind = attention.choose_kernel(row["lq"], row["s"],
-                                           getattr(torch, row["dtype"]))
-            variants[kind] = variants.get(kind, 0) + row["launches"]
+        variants = kernel_variants(attention, record)
         record.update(stats=stats, corner_epe_px=corner_err.tolist(),
                       launches_by_kernel=variants, queries_expected=expected)
         log(f"[synthetic-eval] {dtype}: {json.dumps(stats)}")
@@ -1835,11 +1866,7 @@ def phase_megadepth_eval(attention, md, config: str, out_dir: str) -> dict:
             result, all_epe = md.eval_twin.evaluate(
                 engine, ds, args.pairs, args.grid,
                 md.zoom_ladder(args.zoom_depth), args.pair_batch)
-        variants = {}
-        for row in record["shape_counts"]:
-            kind = attention.choose_kernel(row["lq"], row["s"],
-                                           getattr(torch, row["dtype"]))
-            variants[kind] = variants.get(kind, 0) + row["launches"]
+        variants = kernel_variants(attention, record)
         record.update(result=result, launches_by_kernel=variants,
                       per_pair_epe=[dict(valid=len(e),
                                          mean=float(np.mean(e)),
@@ -1861,6 +1888,349 @@ def phase_megadepth_eval(attention, md, config: str, out_dir: str) -> dict:
         del engine
         torch.cuda.empty_cache()
     return runs
+
+
+# ------------------------------------ the demos and the checkpoint tools
+
+def file_digest(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def phase_convert(attention, mods, trainer_ckpt: str, out_dir: str) -> dict:
+    """The flagship written in the reference's ``.pth.tar`` layout, through
+    the convert twin with ``--verify``; one forward served from the
+    ``.npz`` it wrote, against the flagship's; then the publish twin from
+    the training phase's ``Trainer`` checkpoint into ``out_dir``."""
+    from cotr_tpu_torch.models.torch_convert import port_to_torch_state_dict
+    from cotr_tpu_torch.tools import convert_checkpoint, publish_flagship
+
+    cfg = mods.COTRConfig()
+    pth = os.path.join(out_dir, "flagship.pth.tar")
+    torch.save({"model_state_dict": port_to_torch_state_dict(
+        mods.params_from_flax(mods.load_flagship(FLAGSHIP)), cfg)}, pth)
+    npz = os.path.join(out_dir, "converted.npz")
+    canvas, queries = convert_checkpoint.verify_inputs()
+    served = {}
+    with counted(attention, {}) as record:
+        converted = convert_checkpoint.main(
+            ["--torch", pth, "--out", npz, "--verify"], device="cuda")
+        for name, path in (("flagship", FLAGSHIP), ("converted", npz)):
+            runner = mods.ModelRunner(mods.load_model(path, cfg,
+                                                      device="cuda"),
+                                      device="cuda")
+            served[name] = runner.forward(canvas, queries).cpu().numpy()
+    exact = np.array_equal(served["flagship"], served["converted"])
+    log(f"[convert] {converted['parameters']:,} parameters, .pth.tar -> "
+        f"float32 .npz ({os.path.getsize(npz) / 1e6:.1f} MB); --verify max "
+        f"deviation {converted['max_abs_dev']:.1e}; the .npz served on the "
+        f"card equals the flagship's forward: {exact}; "
+        f"{record['wall_s']:.2f} s wall")
+    log_counts("convert", record)
+    if not (exact and converted["max_abs_dev"] == 0.0
+            and np.isfinite(served["converted"]).all()):
+        raise AssertionError("[convert] the round trip is not exact")
+
+    published = os.path.join(out_dir, "published", "flagship.npz")
+    t0 = time.perf_counter()
+    meta = publish_flagship.main(["--ckpt", trainer_ckpt, "--out", published,
+                                  "--note", "chip_smoke training phase"])
+    publish_s = time.perf_counter() - t0
+    trained = mods.load_params(trainer_ckpt)
+    back = mods.load_params(published)
+    worst = max(float(((back[k] - v.float()).abs()
+                       / v.float().abs().clamp(min=1e-30)).max())
+                for k, v in trained.items() if v.is_floating_point())
+    log(f"[convert] publish_flagship from the training phase's Trainer "
+        f"checkpoint: {meta['size_mb']} MB bf16 .npz in {publish_s:.2f} s, "
+        f"training config embedded: {'training' in meta}; weights within "
+        f"{worst:.2e} of the trained ones (bf16 rounding 2**-8)")
+    if not ("training" in meta and set(back) == set(trained)
+            and worst <= 2.0 ** -8):
+        raise AssertionError("[convert] the published weights are not the "
+                             "trained ones rounded to bf16")
+    record.update(parameters=converted["parameters"], served_exact=exact,
+                  publish_s=publish_s, publish_size_mb=meta["size_mb"],
+                  publish_max_rel_err=worst)
+    return record
+
+
+class DenseLog:
+    """Counts the engine's dense seed passes while installed over
+    ``engine.dense_flow_many`` (looked up at each call)."""
+
+    def __init__(self, engine_mod):
+        self.engine_mod = engine_mod
+        self.calls = 0
+
+    def __enter__(self):
+        self.original = self.engine_mod.dense_flow_many
+
+        def logged(*args, **kwargs):
+            self.calls += 1
+            return self.original(*args, **kwargs)
+
+        self.engine_mod.dense_flow_many = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.engine_mod.dense_flow_many = self.original
+
+
+def big_texture(rng, h: int, w: int) -> np.ndarray:
+    """A photograph-sized texture: a quarter-size one upsampled 4 times."""
+    return np.round(_upsample(procedural_texture(rng, h // 4, w // 4),
+                              h, w)).astype(np.uint8)
+
+
+def lift_depth(cap, xy: np.ndarray) -> tuple:
+    """World points of the pixels ``xy`` of a capture by its depth at the
+    nearest pixel: (points (N, 3), valid (N,))."""
+    h, w = cap.depth_map.shape
+    px = np.clip(np.rint(xy).astype(int), 0, [w - 1, h - 1])
+    z = cap.depth_map[px[:, 1], px[:, 0]].astype(np.float64)
+    ray = np.concatenate([xy, np.ones((len(xy), 1))], 1) @ np.linalg.inv(
+        cap.pinhole_cam.intrinsic_mat).T
+    cam = ray * z[:, None]
+    c2w = cap.cam_pose.camera_to_world
+    return cam @ c2w[:3, :3].T + c2w[:3, 3], z > 0
+
+
+def phase_demos(attention, md, config: str, out_dir: str) -> dict:
+    """Each demo twin's ``main`` on the card with the flagship at full width
+    and its default dtype (float32), on generated inputs written as
+    ``.npy``: its wall time, correspondences, launches by shape, the dense
+    seed passes it ran and, where there is a ground truth, its error."""
+    from cotr_tpu_torch.demos import (demo_face, demo_guided_matching,
+                                      demo_homography, demo_reconstruction,
+                                      demo_single_pair, demo_wbs)
+    from cotr_tpu_torch.inference import engine as engine_mod
+
+    rng = np.random.RandomState(21)
+    runs = {}
+
+    def save(name, array):
+        path = os.path.join(out_dir, name)
+        np.save(path, array, allow_pickle=array.dtype == object)
+        return path
+
+    def run(tag, demo, argv, sparse_engine):
+        with DenseLog(engine_mod) as dense, \
+                contextlib.chdir(out_dir), \
+                counted(attention, {}) as record:
+            result = demo.main(argv, device="cuda")
+        variants = kernel_variants(attention, record)
+        record.update(dense_passes=dense.calls, launches_by_kernel=variants)
+        log(f"[demos] {tag}: {record['wall_s']:.2f} s wall, "
+            f"{dense.calls} dense seed passes, launches by kernel "
+            f"{variants}")
+        log_counts("demos", record)
+        if variants.get("tile", 0) < 1 or (
+                sparse_engine and variants.get("row", 0) < 1):
+            raise AssertionError(f"[demos] {tag}: launches by kernel "
+                                 f"{variants}")
+        runs[tag] = record
+        return result, record
+
+    def check(tag, corrs):
+        if not (len(corrs) >= 1 and np.isfinite(corrs).all()):
+            raise AssertionError(f"[demos] {tag}: {corrs.shape} or a "
+                                 f"non-finite correspondence")
+
+    # single pair with --densify: chip_smoke's 768 x 1024 pair, B a known
+    # homography of A
+    img_a, img_b, hmat = make_pair(rng, DEMO_HW, 4.0, 1.05, (20, -12))
+    argv = ["--img_a", save("pair_a.npy", img_a),
+            "--img_b", save("pair_b.npy", img_b), "--densify"]
+    result, record = run("single pair --densify", demo_single_pair, argv,
+                         True)
+    corrs = result["corrs"]
+    check("single pair", corrs)
+    err = np.linalg.norm(apply_h(hmat, corrs[:, :2]) - corrs[:, 2:], axis=1)
+    valid = result["dense"].any(axis=-1)
+    ys, xs = np.nonzero(valid)
+    flow_err = np.linalg.norm(apply_h(hmat, np.stack([xs, ys], 1).astype(
+        np.float64)) - result["dense"][ys, xs], axis=1)
+    warp_mad = float(np.abs(result["warped"][valid]
+                            - img_a[valid].astype(np.float32)).mean())
+    record.update(correspondences=len(corrs),
+                  median_px=float(np.median(err)),
+                  dense_valid_share=float(valid.mean()),
+                  dense_median_px=float(np.median(flow_err)),
+                  warp_mean_abs_diff=warp_mad)
+    log(f"[demos] single pair: {len(corrs)} correspondences, median error "
+        f"vs the homography {np.median(err):.2f} px; densified flow over "
+        f"{valid.mean():.1%} of A, median error {np.median(flow_err):.2f} "
+        f"px; B warped back onto A: mean |A - B(flow)| {warp_mad:.2f} grey "
+        f"levels")
+    if not (np.isfinite(result["warped"]).all() and valid.any()):
+        raise AssertionError("[demos] single pair: the densified warp")
+
+    # face: 68 fixed queries on an oval inside a non-square pair
+    img_a, img_b, hmat = make_pair(rng, FACE_HW, 2.0, 1.0, (16, 10))
+    t = np.linspace(0, 2 * np.pi, 68, endpoint=False)
+    fh, fw = FACE_HW
+    landmarks = np.stack([fw / 2 + 0.23 * fw * np.cos(t) * (
+        1 + 0.1 * np.cos(3 * t)), fh / 2 + 0.35 * fh * np.sin(t)], 1)[None]
+    argv = ["--img_a", save("face_a.npy", img_a),
+            "--img_b", save("face_b.npy", img_b),
+            "--landmarks", save("landmarks.npy", landmarks)]
+    result, record = run("face", demo_face, argv, True)
+    corrs = result["corrs"]
+    check("face", corrs)
+    err = np.linalg.norm(apply_h(hmat, corrs[:, :2]) - corrs[:, 2:], axis=1)
+    record.update(correspondences=len(corrs), queries=68,
+                  median_px=float(np.median(err)))
+    log(f"[demos] face: {len(corrs)} of 68 transfers kept by force=False, "
+        f"median error vs the homography {np.median(err):.2f} px")
+
+    # homography: the reference's four corners, so A has a portrait
+    # photograph's size; B a known homography of it
+    h, w = PAINT_HW
+    img_a = big_texture(rng, h, w)
+    hmat = known_homography(h, w, 3.0, 1.02, (30, -20))
+    img_b = warp_homography(img_a, hmat)
+    argv = ["--img_a", save("paint_a.npy", img_a),
+            "--img_b", save("paint_b.npy", img_b),
+            "--rep_img", save("rep.npy", procedural_texture(rng, 600, 400)),
+            "--out", "overlay.png"]
+    result, record = run("homography", demo_homography, argv, True)
+    corrs = result["corrs"]
+    check("homography", corrs)
+    err = np.linalg.norm(apply_h(hmat, demo_homography.ANNOTATED_CORNERS
+                                 .astype(np.float64)) - corrs[:, 2:], axis=1)
+    record.update(correspondences=len(corrs), corner_px=err.tolist())
+    log(f"[demos] homography on {h}x{w}: corner errors "
+        f"{np.round(err, 2).tolist()} px")
+    if not (len(corrs) == 4 and np.isfinite(result["warped"]).all()):
+        raise AssertionError("[demos] homography: the overlay")
+
+    # wbs: 100 annotated rows, known relative scale: no dense seed pass
+    img_a, img_b, hmat = make_pair(rng, DEMO_HW, -3.0, 1.0, (-18, 9))
+    pts = grid_queries(*DEMO_HW, nx=10, ny=10)
+    path = os.path.join(out_dir, "wbs_pts.txt")
+    np.savetxt(path, np.concatenate([pts, apply_h(hmat, pts)], 1))
+    argv = ["--img_a", save("wbs_a.npy", img_a),
+            "--img_b", save("wbs_b.npy", img_b), "--pts", path]
+    result, record = run("wbs", demo_wbs, argv, True)
+    check("wbs", result["corrs"])
+    record.update(correspondences=len(result["corrs"]),
+                  median_px=float(np.median(result["err"])))
+    log(f"[demos] wbs: {len(result['corrs'])} correspondences, median error "
+        f"vs the annotation {np.median(result['err']):.2f} px")
+    if record["dense_passes"] != 0:
+        raise AssertionError("[demos] wbs ran the dense seed pass")
+
+    # guided matching and reconstruction: two overlapping views of the
+    # generated scene and their cameras
+    data_cfg = md.eval_twin.data_config(config)
+    sdd = data_cfg.scenes_name_list[0]
+    scene = md.Reader.read_sfm_scene(sdd["scene_dir"], sdd["image_dir"],
+                                     sdd["depth_dir"], "no_crop")
+    a, b = scene[0], scene[3]
+    gt = md.compute_corrs(a, b, impl="native")
+    cam_a = save("camera_a.npy", np.array(
+        {"intrinsic": a.pinhole_cam.intrinsic_mat,
+         "c2w": a.cam_pose.camera_to_world}, dtype=object))
+    cam_b = save("camera_b.npy", np.array(
+        {"intrinsic": b.pinhole_cam.intrinsic_mat,
+         "W2C": b.cam_pose.world_to_camera[:3]}, dtype=object))
+    sel = rng.choice(len(gt), 1000, replace=False)
+    hb, wb = b.image.shape[:2]
+    kpts_a = gt[sel, :2]
+    kpts_b = np.concatenate([gt[sel[:800], 2:], np.stack(
+        [rng.uniform(0, wb - 1, 300), rng.uniform(0, hb - 1, 300)], 1)])
+    pair = ["--img_a", a.img_path, "--img_b", b.img_path]
+    argv = [*pair, "--kpts_a", save("kpts_a.npy", kpts_a),
+            "--kpts_b", save("kpts_b.npy", kpts_b), "--faster_infer", "yes"]
+    result, record = run("guided matching", demo_guided_matching, argv,
+                         False)
+    matches = result["matches"]
+    check("guided matching", matches)
+    target = {tuple(k): t for k, t in zip(kpts_a, gt[sel, 2:])}
+    err = np.linalg.norm(np.array([target[tuple(m[:2])] for m in matches])
+                         - matches[:, 2:], axis=1)
+    record.update(keypoints=[len(kpts_a), len(kpts_b)],
+                  mutual=len(result["mutual"]), inliers=len(matches),
+                  inlier_median_px=float(np.median(err)),
+                  inliers_within_3px=float(np.mean(err <= 3.0)))
+    log(f"[demos] guided matching: {len(kpts_a)} / {len(kpts_b)} keypoints, "
+        f"{len(result['mutual'])} mutual matches, {len(matches)} RANSAC "
+        f"inliers, their median error vs compute_corrs "
+        f"{np.median(err):.2f} px, {np.mean(err <= 3.0):.0%} within 3 px")
+
+    argv = [*pair, "--camera_a", cam_a, "--camera_b", cam_b,
+            "--out_pcd", "reconstruction.npy", "--faster_infer", "yes"]
+    result, record = run("reconstruction", demo_reconstruction, argv, False)
+    check("reconstruction", result["corrs"])
+    lifted, ok = lift_depth(a, result["corrs"][:, :2])
+    dist = np.linalg.norm(result["points"] - lifted, axis=1)[ok]
+    depth = a.depth_map[a.depth_map > 0]
+    record.update(correspondences=len(result["corrs"]),
+                  median_dist=float(np.median(dist)),
+                  median_depth=float(np.median(depth)))
+    log(f"[demos] reconstruction: {len(result['corrs'])} correspondences, "
+        f"triangulated points' median distance to A's depth lifted to 3-D "
+        f"{np.median(dist):.4f} (scene depth median "
+        f"{np.median(depth):.2f})")
+    if not (np.isfinite(result["points"]).all() and ok.any()):
+        raise AssertionError("[demos] reconstruction: the point cloud")
+    return runs
+
+
+def phase_eval_suite(attention, out_dir: str) -> dict:
+    """The eval-suite twin at its defaults (bfloat16, 5 seeds, a 15 x 15
+    grid) on 4 generated images in place of the absent real ones plus 4
+    procedural textures; then the diagnose-tail twin at its defaults on the
+    same images."""
+    from cotr_tpu_torch.tools import diagnose_tail, eval_suite
+    from cotr_tpu_torch.tools import eval_synthetic_pair as eval_twin
+
+    rng = np.random.RandomState(22)
+    paths = []
+    for i, hw in enumerate([(600, 800), (480, 640), (720, 540),
+                            (400, 560)]):
+        paths.append(os.path.join(out_dir, f"eval_{i}.npy"))
+        np.save(paths[-1], procedural_texture(rng, *hw))
+    out = {}
+    for tag, tool, extra in (
+            ("eval-suite", eval_suite, ["--proc", "4", "--seeds",
+                                        SUITE_SEEDS]),
+            ("diagnose-tail", diagnose_tail, [])):
+        argv = ["--ckpt", FLAGSHIP, "--textures", *paths,
+                "--out", os.path.join(out_dir, tag), *extra]
+        with counted(attention, {}) as record:
+            stats = tool.main(argv, device="cuda")
+        variants = kernel_variants(attention, record)
+        record.update(result=stats, launches_by_kernel=variants)
+        log(f"[eval-suite] {tag}: {json.dumps(stats.get('pooled'))}; "
+            f"{record['wall_s']:.2f} s wall; launches by kernel {variants}")
+        log_counts("eval-suite", record)
+        if variants.get("tile", 0) < 1:
+            raise AssertionError(f"[eval-suite] {tag}: the tile kernel was "
+                                 f"not launched")
+        out[tag] = record
+    suite = out["eval-suite"]["result"]
+    tail = out["diagnose-tail"]["result"]
+    log(f"[eval-suite] {len(suite['textures'])} textures x "
+        f"{len(suite['seeds'])} seeds, {suite['queries_total']} queries: "
+        f"median {suite['pooled']['epe_median_px']} px (95% CI "
+        f"{suite['epe_median_px_ci95']}), PCK@5px "
+        f"{suite['pooled']['pck@5px']} (CI {suite['pck@5px_ci95']}); "
+        f"diagnose-tail over {tail['queries']} queries: tail shares "
+        f"{tail['tail_class_shares']}")
+    seeds = [int(x) for x in SUITE_SEEDS.split(",")]
+    expected = len(paths + ["proc"] * 4) * sum(len(eval_twin.query_grid(
+        512, 15, eval_twin.homography_for_seed(512, seed, 0.15))[0])
+        for seed in seeds)
+    if not (suite["queries_total"] == expected
+            and all(np.isfinite(v) for v in suite["pooled"].values())
+            and np.isfinite(tail["pooled"]["median"])):
+        raise AssertionError(f"[eval-suite] {suite['queries_total']} answers "
+                             f"for {expected} queries, or a non-finite one")
+    return out
 
 
 def merged_shape_counts(records) -> list:
@@ -1905,6 +2275,7 @@ def main() -> int:
         build_model=build_model, load_model=load_model,
         ModelRunner=ModelRunner, SparseEngine=SparseEngine,
         params_from_flax=checkpoint_io.params_from_flax,
+        load_params=checkpoint_io.load_params,
         load_flagship=checkpoint_io.load_flagship,
         save_params_npz=checkpoint_io.save_params_npz,
         make_eval_step=train_step_mod.make_eval_step,
@@ -1914,6 +2285,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    flagship_digest = file_digest(FLAGSHIP)
     card = phase_card()
     build = phase_build(attention, native, grouped)
     rows = phase_kernel(attention)
@@ -1939,6 +2311,8 @@ def main() -> int:
         eval_step = phase_eval_step(attention, mods, trainer, batch)
         checkpoint = phase_checkpoint(attention, mods, trainer, batch,
                                       out_dir)
+        convert = phase_convert(attention, mods, os.path.join(
+            out_dir, "checkpoints", "checkpoint.pt"), out_dir)
         del trainer, batch
         torch.cuda.empty_cache()
 
@@ -2001,6 +2375,15 @@ def main() -> int:
                                       md_dir)
         md_train = phase_megadepth_train(attention, md, config, md_dir)
         md_eval = phase_megadepth_eval(attention, md, config, md_dir)
+        demo_dir = os.path.join(md_dir, "demos")
+        os.makedirs(demo_dir)
+        demos = phase_demos(attention, md, config, demo_dir)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(ROOT, "build")) as suite_dir:
+        suite = phase_eval_suite(attention, suite_dir)
+    if file_digest(FLAGSHIP) != flagship_digest:
+        raise AssertionError("checkpoints/flagship.npz changed during the "
+                             "run")
     # each path's own run; the comparison runs beside them (scan engine on
     # the squad phase's queries, the serial calls, the einsum evaluation)
     # are left out, and so is serving the trained weights, which repeats
@@ -2025,7 +2408,12 @@ def main() -> int:
                  md_train["validation"],
              "MegaDepth eval twin, FasterSparseEngine, 4 pairs":
                  md_eval["faster"],
-             "MegaDepth eval twin, SparseEngine, 1 pair": md_eval["sparse"]}
+             "MegaDepth eval twin, SparseEngine, 1 pair": md_eval["sparse"],
+             "convert twin --verify and the served .npz": convert,
+             **{f"demo twin, {tag}": run for tag, run in demos.items()},
+             "eval-suite twin, 8 textures x 5 seeds": suite["eval-suite"],
+             "diagnose-tail twin, 6 textures x 3 seeds":
+                 suite["diagnose-tail"]}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
 
@@ -2055,7 +2443,8 @@ def main() -> int:
                        synthetic_train=synth_train,
                        synthetic_eval=synth_eval, megadepth_data=md_data,
                        device_synth=md_synth, megadepth_train=md_train,
-                       megadepth_eval=md_eval, kernels=kernels),
+                       megadepth_eval=md_eval, convert=convert,
+                       demos=demos, eval_suite=suite, kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
         f"{squad['wall_s']:.3f} s; [multipair] wall "
@@ -2068,7 +2457,11 @@ def main() -> int:
         f"{md_train['host']['ms_per_step']:.1f} ms a step (host layout), "
         f"{md_train['device_synth']['ms_per_step']:.1f} ms (device_synth), "
         f"float32; [megadepth-eval] median EPE "
-        f"{md_eval['faster']['result']['epe_median']:.2f} px")
+        f"{md_eval['faster']['result']['epe_median']:.2f} px; [demos] "
+        + ", ".join(f"{tag} {run['wall_s']:.2f} s" for tag, run in
+                    demos.items())
+        + f"; [eval-suite] {suite['eval-suite']['wall_s']:.2f} s, "
+        f"[diagnose-tail] {suite['diagnose-tail']['wall_s']:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

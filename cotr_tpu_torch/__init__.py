@@ -17,8 +17,14 @@ algebra, ``data/`` the synthetic homography dataset, the MegaDepth datasets
 the device) and the prefetching loader, ``tools/`` the twins of the JAX
 package's training and evaluation scripts
 (``python -m cotr_tpu_torch.tools.train_cotr``, ``.eval_megadepth``,
-``.train_synthetic``, ``.eval_synthetic_pair``) and a generator of COLMAP
-scenes (``.generated_scene``).
+``.train_synthetic``, ``.eval_synthetic_pair``), of its checkpoint and
+accuracy tools (``.convert_checkpoint``, ``.publish_flagship``,
+``.eval_suite``, ``.diagnose_tail``) and a generator of COLMAP scenes
+(``.generated_scene``); ``demos/`` the twins of the six demos
+(``python -m cotr_tpu_torch.demos.demo_single_pair``, ``.demo_face``,
+``.demo_homography``, ``.demo_guided_matching``, ``.demo_reconstruction``,
+``.demo_wbs``), which read ``.npy`` images and write PNG pictures without an
+image library.
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from cotr_tpu_torch.ops.sampling import gather_bilinear
 from cotr_tpu_torch.utils.device import resolve_device
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -50,26 +51,9 @@ def apply_homography(h: np.ndarray, pts: np.ndarray) -> np.ndarray:
 
 def _gather_bilinear_zero_outside(image: torch.Tensor, x: torch.Tensor,
                                   y: torch.Tensor) -> torch.Tensor:
-    """Sample image (H, W, C) at float pixel coordinates x, y (any shape).
-    Each of the four corners outside the image contributes zero (torch's
-    ``grid_sample`` zero padding); the gather itself reads clamped."""
-    h, w = image.shape[0], image.shape[1]
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    tx = (x - x0)[..., None]
-    ty = (y - y0)[..., None]
-    x0i = x0.long()
-    y0i = y0.long()
-
-    def corner(dx, dy):
-        xf, yf = x0 + dx, y0 + dy
-        val = image[(y0i + dy).clamp(0, h - 1), (x0i + dx).clamp(0, w - 1)]
-        inside = (xf >= 0) & (xf <= w - 1) & (yf >= 0) & (yf <= h - 1)
-        return val * inside[..., None]
-
-    top = corner(0, 0) * (1 - tx) + corner(1, 0) * tx
-    bot = corner(0, 1) * (1 - tx) + corner(1, 1) * tx
-    return top * (1 - ty) + bot * ty
+    """The zero-padded bilinear gather of :func:`warp_perspective`
+    (``ops.sampling.gather_bilinear``)."""
+    return gather_bilinear(image, x, y, zero_outside=True)
 
 
 def warp_perspective(img: torch.Tensor, h: np.ndarray,

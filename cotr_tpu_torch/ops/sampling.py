@@ -1,6 +1,8 @@
 """Bilinear sampling and crop-and-resize (counterpart of
 cotr_tpu/ops/sampling.py), images in HWC layout.
 
+* :func:`gather_bilinear`: bilinear samples at float pixel coordinates,
+  each corner outside the image contributing zero (or read clamped).
 * :func:`grid_sample`: torch semantics, ``align_corners=False``, zero
   padding; a normalized coordinate g in [-1, 1] maps to pixel
   ((g + 1) * size - 1) / 2.
@@ -29,6 +31,33 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def gather_bilinear(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    zero_outside: bool = True) -> torch.Tensor:
+    """Sample image (H, W, C) at float pixel coordinates x, y (any shape),
+    on the image's device. The gather reads clamped; with ``zero_outside``
+    each of the four corners outside the image contributes zero (torch's
+    ``grid_sample`` zero padding)."""
+    h, w = image.shape[0], image.shape[1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    tx = (x - x0)[..., None]
+    ty = (y - y0)[..., None]
+    x0i = x0.long()
+    y0i = y0.long()
+
+    def corner(dx, dy):
+        val = image[(y0i + dy).clamp(0, h - 1), (x0i + dx).clamp(0, w - 1)]
+        if not zero_outside:
+            return val
+        xf, yf = x0 + dx, y0 + dy
+        inside = (xf >= 0) & (xf <= w - 1) & (yf >= 0) & (yf <= h - 1)
+        return val * inside[..., None]
+
+    top = corner(0, 0) * (1 - tx) + corner(1, 0) * tx
+    bot = corner(0, 1) * (1 - tx) + corner(1, 1) * tx
+    return top * (1 - ty) + bot * ty
 
 
 def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

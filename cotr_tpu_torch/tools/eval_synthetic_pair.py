@@ -100,9 +100,11 @@ def warp_for_seed(img_a: np.ndarray, seed: int, jitter: float,
 
 
 def eval_seed(engine, img_a: np.ndarray, seed: int, jitter: float,
-              grid: int, zoom_ins, converge_iters: int = 1) -> np.ndarray:
+              grid: int, zoom_ins, converge_iters: int = 1,
+              cycle_select=False) -> np.ndarray:
     """End-point errors (px) of the engine on one warp seed's query grid
-    (the middle 80%, queries whose target leaves the image dropped)."""
+    (the middle 80%, queries whose target leaves the image dropped).
+    ``cycle_select`` goes to ``cotr_corr_multiscale``."""
     # a fresh engine stream per seed: the squad permutations would otherwise
     # depend on which seeds ran before
     engine.rng = np.random.RandomState(10_000 + seed)
@@ -110,7 +112,8 @@ def eval_seed(engine, img_a: np.ndarray, seed: int, jitter: float,
     queries, gt = query_grid(img_a.shape[0], grid, h_mat)
     corrs = engine.cotr_corr_multiscale(
         img_a, img_b, zoom_ins=zoom_ins, converge_iters=converge_iters,
-        max_corrs=len(queries), queries_a=queries.copy(), force=True)
+        max_corrs=len(queries), queries_a=queries.copy(), force=True,
+        cycle_select=cycle_select)
     return np.linalg.norm(corrs[:, 2:] - gt, axis=1)
 
 
