@@ -472,57 +472,69 @@ def phase_crops(sampling) -> list:
     return rows
 
 
+def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
+    """The kernel at (B, Lq, S) in ``dtype`` against its plain version
+    (raises past ``KERNEL_TOL``), and its times beside the plain version's,
+    SDPA's and the bound."""
+    h, hd = 8, 32
+    td = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(b * 131 + lq)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(td)
+               for shape in ((b, lq, h, hd), (b, s, h, hd), (b, s, h, hd)))
+    got = attention.flash_cross_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = attention.flash_cross_attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= KERNEL_TOL[dtype]:
+        raise AssertionError(
+            f"kernel vs plain at {label} B={b} Lq={lq} {dtype}: max abs err "
+            f"{err} > {KERNEL_TOL[dtype]}")
+    iters = 20 if b * lq >= 4096 else 100
+    ms = time_ms(lambda: attention.flash_cross_attention(q, k, v), iters)
+    plain_ms = time_ms(
+        lambda: attention.flash_cross_attention_plain(q, k, v), iters)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+    bound_ms, bound_by = attention_bound_ms(b, lq, s, h, hd, dtype)
+    variant = attention.choose_kernel(lq, s, td)
+    # the tile kernel at each height it is built for (at Lq = 1 too, where
+    # the wrapper picks the row kernel), to show what the wrapper should pick
+    by_rows = {n: time_ms(lambda: attention.flash_cross_attention(
+        q, k, v, tile_rows=n), iters) for n in (64, 128)}
+    row = dict(shape=label, b=b, lq=lq, s=s, h=h, hd=hd, dtype=dtype,
+               variant=variant, ms_by_tile_rows=by_rows,
+               # not the bound: one exp a logit is a second floor, which
+               # the softmax sets
+               exp_floor_ms=b * h * lq * s / exp_rate * 1e3,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[kernel] {label:24s} B={b:<4d} Lq={lq:<5d} {dtype:8s} "
+        f"{variant:4s} err {err:.2e}  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  "
+        f"bound {bound_ms:.4f} ms ({bound_by})  "
+        f"exp floor {row['exp_floor_ms']:.4f} ms"
+        + "".join(f"  tile of {n} rows {t:.4f} ms"
+                  for n, t in by_rows.items()))
+    return row
+
+
 def phase_kernel(attention) -> list:
-    rows = []
-    h, hd, s = 8, 32, 512
     exp_rate = exp_rate_per_s()
-    for dtype in ("float32", "bfloat16"):
-        td = getattr(torch, dtype)
-        for label, b, lq in SHAPES:
-            gen = torch.Generator(device="cuda").manual_seed(b * 131 + lq)
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(td)
-                       for shape in ((b, lq, h, hd), (b, s, h, hd),
-                                     (b, s, h, hd)))
-            got = attention.flash_cross_attention(q, k, v)
-            torch.cuda.synchronize()
-            want = attention.flash_cross_attention_plain(q, k, v)
-            err = (got.float() - want.float()).abs().max().item()
-            if not err <= KERNEL_TOL[dtype]:
-                raise AssertionError(
-                    f"kernel vs plain at {label} {dtype}: max abs err {err} "
-                    f"> {KERNEL_TOL[dtype]}")
-            iters = 20 if b * lq >= 4096 else 100
-            ms = time_ms(lambda: attention.flash_cross_attention(q, k, v),
-                         iters)
-            plain_ms = time_ms(
-                lambda: attention.flash_cross_attention_plain(q, k, v), iters)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
-            bound_ms, bound_by = attention_bound_ms(b, lq, s, h, hd, dtype)
-            variant = attention.choose_kernel(lq, s, td)
-            # the tile kernel at each height it is built for (at Lq = 1 too,
-            # where the wrapper picks the row kernel), to show what the
-            # wrapper should pick
-            by_rows = {n: time_ms(lambda: attention.flash_cross_attention(
-                q, k, v, tile_rows=n), iters) for n in (64, 128)}
-            rows.append(dict(shape=label, b=b, lq=lq, s=s, h=h, hd=hd,
-                             dtype=dtype, variant=variant,
-                             ms_by_tile_rows=by_rows,
-                             # not the bound: one exp a logit is a second
-                             # floor, which the softmax sets
-                             exp_floor_ms=b * h * lq * s / exp_rate * 1e3,
-                             max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
-            log(f"[kernel] {label:24s} B={b:<4d} Lq={lq:<5d} {dtype:8s} "
-                f"{variant:4s} err {err:.2e}  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by})  "
-                f"exp floor {rows[-1]['exp_floor_ms']:.4f} ms"
-                + "".join(f"  tile of {n} rows {t:.4f} ms"
-                          for n, t in by_rows.items()))
-    return rows
+    return [check_shape(attention, label, b, lq, dtype, exp_rate)
+            for dtype in ("float32", "bfloat16") for label, b, lq in SHAPES]
+
+
+def phase_path_shapes(attention, shape_counts, rows) -> list:
+    """Every (B, Lq, S, dtype) that a counted path launched and
+    ``phase_kernel`` did not check, held against the plain version the same
+    way. These launches come after the paths' counts were read."""
+    checked = {(r["b"], r["lq"], r["s"], r["dtype"]) for r in rows}
+    exp_rate = exp_rate_per_s()
+    return [check_shape(attention, "launched on a path", r["b"], r["lq"],
+                        r["dtype"], exp_rate, s=r["s"])
+            for r in shape_counts
+            if (r["b"], r["lq"], r["s"], r["dtype"]) not in checked]
 
 
 def phase_forward(load_model, cfg_cls) -> dict:
@@ -2416,6 +2428,7 @@ def main() -> int:
                  suite["diagnose-tail"]}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
+    rows += phase_path_shapes(attention, shape_counts, rows)
 
     main_row = next(r for r in rows if r["shape"] == "dense decode chunk"
                     and r["dtype"] == "float32")

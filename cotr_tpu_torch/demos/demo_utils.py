@@ -75,7 +75,8 @@ def build_engine(args, mode: str = "tile", device="cuda"):
     runner = ModelRunner(model, device=device)
     if args.faster_infer == "yes":
         return FasterSparseEngine(runner, batch_size=args.batch_size,
-                                  mode=mode, safe_area=args.safe_area)
+                                  mode=mode,
+                                  safe_area=getattr(args, "safe_area", 0.5))
     return SparseEngine(runner, batch_size=args.batch_size, mode=mode)
 
 

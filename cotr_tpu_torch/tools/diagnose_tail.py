@@ -36,7 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from cotr_tpu_torch.config import COTRConfig
-from cotr_tpu_torch.inference.engine import FasterSparseEngine, SparseEngine
+from cotr_tpu_torch.inference.engine import SparseEngine
 from cotr_tpu_torch.inference.runner import ModelRunner
 from cotr_tpu_torch.models.checkpoint_io import load_model
 from cotr_tpu_torch.tools import eval_synthetic_pair as eval_twin
@@ -75,12 +75,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def build_engine(ckpt: str, dtype: str, kind: str, max_load: int,
                  device="cuda"):
-    """``FasterSparseEngine`` (``kind`` 'faster') or ``SparseEngine``
-    ('base') in tile mode over the weights at ``ckpt``, diagnostics on."""
-    runner = ModelRunner(load_model(ckpt, COTRConfig(dtype=dtype),
-                                    device=device), device=device)
-    engine = (FasterSparseEngine(runner, mode="tile", max_load=max_load)
-              if kind == "faster" else SparseEngine(runner, mode="tile"))
+    """``eval_synthetic_pair``'s ``FasterSparseEngine`` (``kind``
+    'faster') or ``SparseEngine`` ('base') in tile mode over the weights at
+    ``ckpt``, diagnostics on."""
+    if kind == "faster":
+        engine = eval_twin.build_engine(ckpt, dtype, max_load, device)
+    else:
+        engine = SparseEngine(ModelRunner(load_model(
+            ckpt, COTRConfig(dtype=dtype), device=device), device=device),
+            mode="tile")
     engine.collect_diagnostics = True
     return engine
 
@@ -145,14 +148,9 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> dict:
     rows = []  # one dict per query
     for name, img_a in textures.items():
         for seed in seeds:
-            engine.rng = np.random.RandomState(10_000 + seed)
-            h_mat, img_b = eval_twin.warp_for_seed(img_a, seed, args.jitter,
-                                                   engine.runner.device)
-            queries, gt = eval_twin.query_grid(side, args.grid, h_mat)
-            engine.cotr_corr_multiscale(
-                img_a, img_b, zoom_ins=zoom_ins, converge_iters=1,
-                max_corrs=len(queries), queries_a=queries.copy(), force=True,
-                cycle_select=args.cycle_select)
+            _, gt = eval_twin.match_seed(engine, img_a, seed, args.jitter,
+                                         args.grid, zoom_ins,
+                                         cycle_select=args.cycle_select)
             d = engine.last_diag
             # force=True keeps the histories in query order
             hist = d["history"]  # (1 + Z, T, 2)

@@ -17,8 +17,8 @@ The flags and defaults are the JAX script's. The JAX script reads the flow
 the other way round (``optical_flow_from_a_to_b(neighbour, query)``: for
 each neighbour pixel the query's) at the query grid, so its ground truth is
 about the inverse displacement and its EPE about twice the displacement
-between the views; here the ground truth is the query's. The engine is
-built here:
+between the views; here the ground truth is the query's. The engine is the
+demos' (``demos.demo_utils.build_engine``), as in the JAX script:
 ``FasterSparseEngine(mode="stretching")``, or ``SparseEngine`` with
 ``--faster_infer no``, over the weights of ``--load_weights_path`` (any
 file ``load_params`` reads; random weights from seed 0 without one). It
@@ -33,6 +33,8 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+
+from cotr_tpu_torch.demos.demo_utils import build_engine
 
 
 def prepare_pair(query_cap, nn_cap, grid: int):
@@ -119,39 +121,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max_corrs", type=int, default=100000)
     ap.add_argument("--out", default="eval_megadepth.json")
     return ap.parse_args(argv)
-
-
-def build_engine(args: argparse.Namespace, mode: str = "stretching",
-                 device="cuda"):
-    """The engine of the JAX package's ``demos/demo_utils.build_engine``:
-    the model in ``--dtype`` over ``--load_weights_path`` (random weights
-    from seed 0 without one or with "none"), then ``FasterSparseEngine``
-    (``--faster_infer yes``) or ``SparseEngine``."""
-    import torch
-
-    from cotr_tpu_torch.config import COTRConfig
-    from cotr_tpu_torch.inference.engine import (FasterSparseEngine,
-                                                 SparseEngine)
-    from cotr_tpu_torch.inference.runner import ModelRunner
-    from cotr_tpu_torch.models.checkpoint_io import load_model
-    from cotr_tpu_torch.models.cotr import build_model, init_weights
-    from cotr_tpu_torch.utils.device import resolve_device
-
-    cfg = COTRConfig(dtype=args.dtype)
-    path = args.load_weights_path
-    if path and path.lower() != "none":
-        model = load_model(path, cfg, device=device)
-        print(f"loaded weights from {path}")
-    else:
-        model = build_model(cfg)
-        init_weights(model, torch.Generator().manual_seed(0))
-        model.to(resolve_device(device))
-        print("WARNING: no weights given; using random initialization")
-    runner = ModelRunner(model, device=device)
-    if args.faster_infer == "yes":
-        return FasterSparseEngine(runner, batch_size=args.batch_size,
-                                  mode=mode)
-    return SparseEngine(runner, batch_size=args.batch_size, mode=mode)
 
 
 def data_config(dataset_config: str):

@@ -99,12 +99,13 @@ def warp_for_seed(img_a: np.ndarray, seed: int, jitter: float,
     return h_mat, img_b.astype(np.uint8)
 
 
-def eval_seed(engine, img_a: np.ndarray, seed: int, jitter: float,
-              grid: int, zoom_ins, converge_iters: int = 1,
-              cycle_select=False) -> np.ndarray:
-    """End-point errors (px) of the engine on one warp seed's query grid
-    (the middle 80%, queries whose target leaves the image dropped).
-    ``cycle_select`` goes to ``cotr_corr_multiscale``."""
+def match_seed(engine, img_a: np.ndarray, seed: int, jitter: float,
+               grid: int, zoom_ins, converge_iters: int = 1,
+               cycle_select=False) -> Tuple[np.ndarray, np.ndarray]:
+    """(the engine's correspondences, their ground truth) on one warp
+    seed's query grid (the middle 80%, queries whose target leaves the
+    image dropped), in query order. ``cycle_select`` goes to
+    ``cotr_corr_multiscale``."""
     # a fresh engine stream per seed: the squad permutations would otherwise
     # depend on which seeds ran before
     engine.rng = np.random.RandomState(10_000 + seed)
@@ -114,6 +115,15 @@ def eval_seed(engine, img_a: np.ndarray, seed: int, jitter: float,
         img_a, img_b, zoom_ins=zoom_ins, converge_iters=converge_iters,
         max_corrs=len(queries), queries_a=queries.copy(), force=True,
         cycle_select=cycle_select)
+    return corrs, gt
+
+
+def eval_seed(engine, img_a: np.ndarray, seed: int, jitter: float,
+              grid: int, zoom_ins, converge_iters: int = 1,
+              cycle_select=False) -> np.ndarray:
+    """End-point errors (px) of ``match_seed``'s correspondences."""
+    corrs, gt = match_seed(engine, img_a, seed, jitter, grid, zoom_ins,
+                           converge_iters, cycle_select)
     return np.linalg.norm(corrs[:, 2:] - gt, axis=1)
 
 
