@@ -100,7 +100,20 @@ Phases (any failure exits non-zero):
     and 4 procedural textures, 5 seeds, a 15 x 15 grid) and the
     diagnose-tail twin at its defaults; the flagship file must be
     byte-identical at the end;
-23. one JSON line describing each kernel, then the device line last.
+23. ``[parallel-serve]``, after the multi-pair phase: the engines on a
+    local mesh that lists the card twice (``parallel.mesh``), against the
+    same engines without it: ``FasterSparseEngine`` on the 2,000 queries,
+    the multi-pair call on 8 pairs x 32 queries, ``SparseEngine``'s
+    cycle-consistent call (100 kept); then the ``bench_sharded`` twin at
+    N = 2. One card listed twice proves the split and the equal answers,
+    not a speed;
+24. ``[parallel-train]``, after the checkpoint phases: a one-rank NCCL
+    process group (a ``FileStore`` in the output directory); two unsharded
+    runs of 5 ``TrainConfig()`` steps at batch 24 compared as they are,
+    then, with ``torch.backends.cudnn.deterministic``, 5 steps through the
+    data-parallel step from the same state and batch as 5 unsharded steps,
+    and the same with ZeRO-1; ms a step for each;
+25. one JSON line describing each kernel, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -115,6 +128,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -244,6 +258,12 @@ SUITE_SEEDS = "0,1,2,3,4"
 # but for cuDNN's and cuBLAS's freedom in the order of a sum; one step moves
 # a weight by about the rate, 1e-4
 RESUME_ATOL = 1e-6
+# the parallel phases: a local mesh that lists the one card twice for the
+# engines; the data-parallel step in a one-rank process group, held to the
+# unsharded step on the loss (relative) and on the weights (RESUME_ATOL)
+PARALLEL_MESH = ["cuda:0", "cuda:0"]
+PARALLEL_TRAIN_STEPS = 5
+PARALLEL_LOSS_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1033,6 +1053,15 @@ class StepLog:
                 statistics.median(ms[TRAIN_WARMUP_STEPS:]))
 
 
+def flagship_backbone(mods, model) -> None:
+    """The flagship's backbone weights into ``model``."""
+    state = mods.params_from_flax(mods.load_flagship(FLAGSHIP))
+    prefix = "backbone."
+    model.backbone.load_state_dict(
+        {k[len(prefix):]: v for k, v in state.items()
+         if k.startswith(prefix)}, strict=True)
+
+
 def make_trainer(mods, cfg, train_cfg, batch, out_dir, seed=0):
     """A Trainer at step 0 on the card: the flagship's backbone, everything
     else drawn afresh from ``seed``; its loaders yield ``batch`` (already on
@@ -1041,11 +1070,7 @@ def make_trainer(mods, cfg, train_cfg, batch, out_dir, seed=0):
                            lambda: [batch], lambda: [batch], out_dir=out_dir,
                            use_tensorboard=False, device="cuda")
     trainer.initialize(seed=seed)
-    state = mods.params_from_flax(mods.load_flagship(FLAGSHIP))
-    prefix = "backbone."
-    trainer.state.model.backbone.load_state_dict(
-        {k[len(prefix):]: v for k, v in state.items()
-         if k.startswith(prefix)}, strict=True)
+    flagship_backbone(mods, trainer.state.model)
     return trainer
 
 
@@ -2245,6 +2270,282 @@ def phase_eval_suite(attention, out_dir: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- parallelism
+
+def same_refinement(got: np.ndarray, want: np.ndarray) -> dict:
+    """Distances of two runs' answers (rows of x_a, y_a, x_b, y_b for the
+    same queries), held to the "same refinement, other dispatch
+    composition" gate."""
+    diff = np.linalg.norm(got[:, 2:] - want[:, 2:], axis=1)
+    return dict(within_1px=float(np.mean(diff <= 1.0)),
+                median_px=float(np.median(diff)),
+                max_px=float(diff.max()),
+                ok=bool(np.mean(diff <= 1.0) >= SAME_WITHIN_1PX
+                        and np.median(diff) <= SAME_MEDIAN_PX))
+
+
+def phase_parallel_serve(attention, par, runner, pair) -> dict:
+    """The engines on a local mesh that lists the card twice, against the
+    same engines without a mesh, at full width: the squad engine on 2,000
+    grid queries of the 768 x 1024 pair, the multi-pair call on 8 pairs x
+    32 queries, the scan engine's cycle-consistent call (100 kept); then
+    the bench_sharded twin at N = 2. One card listed twice runs both shares
+    in turn: this proves the split and the equal answers, not a speed."""
+    mesh = par.make_mesh(devices=PARALLEL_MESH)
+    img_a, img_b, hmat = pair
+    h, w = img_a.shape[:2]
+    queries = grid_queries(h, w)
+    n = len(queries)
+    kw = dict(zoom_ins=ZOOMS, queries_a=queries, force=True, max_corrs=n)
+    out = {"mesh": PARALLEL_MESH}
+
+    # the squad engine: first use of the halved shapes outside the timing
+    par.FasterSparseEngine(runner, mode="tile", mesh=mesh
+                           ).cotr_corr_multiscale(
+        img_a, img_b, **dict(kw, queries_a=queries[::8], max_corrs=n // 8))
+    sharded = par.FasterSparseEngine(runner, mode="tile", mesh=mesh)
+    with counted(attention, {}) as squad:
+        got = sharded.cotr_corr_multiscale(img_a, img_b, **kw)
+    single = par.FasterSparseEngine(runner, mode="tile")
+    t0 = time.perf_counter()
+    want = single.cotr_corr_multiscale(img_a, img_b, **kw)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    if got.shape != (n, 4) or not np.isfinite(got).all():
+        raise AssertionError(f"[parallel-serve] squad engine on the mesh: "
+                             f"{got.shape} or non-finite output")
+    err = np.linalg.norm(apply_h(hmat, got[:, :2]) - got[:, 2:], axis=1)
+    stepper = sharded._stepper
+    squad.update(queries=n, vs_unsharded=same_refinement(got, want),
+                 unsharded_wall_s=single_s, median_px=float(np.median(err)),
+                 dispatch_count=stepper.dispatch_count,
+                 canvas_count=stepper.canvas_count,
+                 device_canvas_count=stepper.device_canvas_count,
+                 unsharded_canvas_count=single._stepper.canvas_count)
+    log(f"[parallel-serve] squad engine, {n} queries on {PARALLEL_MESH}: "
+        f"{squad['wall_s']:.2f} s wall (unsharded {single_s:.2f} s); "
+        f"against the unsharded engine {squad['vs_unsharded']}; median "
+        f"error vs the known homography {np.median(err):.2f} px; "
+        f"dispatch_count {stepper.dispatch_count}, canvas_count "
+        f"{stepper.canvas_count} (unsharded "
+        f"{single._stepper.canvas_count}), per device "
+        f"{stepper.device_canvas_count}")
+    log_counts("parallel-serve", squad)
+    out["squad"] = squad
+
+    # the multi-pair call
+    rng = np.random.RandomState(6)
+    pairs, pair_queries = [], []
+    for _ in range(8):
+        a, b, _ = make_pair(rng, (480, 640), angle=rng.uniform(-4, 4),
+                            scale=rng.uniform(0.97, 1.04),
+                            shift=rng.uniform(-12, 12, 2))
+        pairs.append((a, b))
+        pair_queries.append(np.stack(
+            [rng.uniform(0.15 * 640, 0.85 * 640, 32),
+             rng.uniform(0.15 * 480, 0.85 * 480, 32)], axis=1))
+    mkw = dict(zoom_ins=ZOOMS, force=True, max_corrs=32,
+               queries_list=pair_queries, pair_seeds=list(range(8)))
+    with counted(attention, {}) as multi:
+        got = par.FasterSparseEngine(runner, mode="tile", seed_stride=4,
+                                     mesh=mesh
+                                     ).cotr_corr_multiscale_multipair(
+            pairs, **mkw)
+    want = par.FasterSparseEngine(runner, mode="tile", seed_stride=4
+                                  ).cotr_corr_multiscale_multipair(pairs,
+                                                                   **mkw)
+    multi["vs_unsharded"] = [same_refinement(g, w_)
+                             for g, w_ in zip(got, want)]
+    log(f"[parallel-serve] multi-pair, 8 x 32 on the mesh: "
+        f"{multi['wall_s']:.2f} s wall; against the unsharded call, worst "
+        f"pair {min(r['within_1px'] for r in multi['vs_unsharded']):.1%} "
+        f"within 1 px")
+    log_counts("parallel-serve", multi)
+    out["multipair"] = multi
+
+    # the scan engine's cycle-consistent call: the answers both runs keep
+    ckw = dict(zoom_ins=ZOOMS, max_corrs=100, return_idx=True)
+    with counted(attention, {}) as scan:
+        got, got_idx = par.SparseEngine(
+            runner, mode="tile", mesh=mesh
+        ).cotr_corr_multiscale_with_cycle_consistency(img_a, img_b, **ckw)
+    want, want_idx = par.SparseEngine(
+        runner, mode="tile").cotr_corr_multiscale_with_cycle_consistency(
+        img_a, img_b, **ckw)
+    common = np.intersect1d(got_idx, want_idx)
+    union = np.union1d(got_idx, want_idx)
+    pick_got = {int(i): r for i, r in zip(got_idx, got)}
+    pick_want = {int(i): r for i, r in zip(want_idx, want)}
+    both = same_refinement(np.stack([pick_got[int(i)] for i in common]),
+                           np.stack([pick_want[int(i)] for i in common]))
+    both["kept_alike"] = float(len(common) / len(union))
+    both["ok"] = both["ok"] and both["kept_alike"] >= SAME_WITHIN_1PX
+    scan.update(kept=int(len(got_idx)), unsharded_kept=int(len(want_idx)),
+                vs_unsharded=both)
+    log(f"[parallel-serve] scan engine, cycle-consistent, on the mesh: "
+        f"{scan['wall_s']:.2f} s wall, {len(got_idx)} kept (unsharded "
+        f"{len(want_idx)}); against the unsharded call {both}")
+    log_counts("parallel-serve", scan)
+    out["scan"] = scan
+
+    # the bench twin at N = 2
+    os.makedirs(OUT_DIR, exist_ok=True)
+    bench_path = os.path.join(OUT_DIR, "bench_sharded.json")
+    with counted(attention, {}) as bench:
+        result = par.bench_sharded.main(
+            ["--n", "2", "--devices", ",".join(PARALLEL_MESH), "--groups",
+             "16", "--members", "16", "--out", bench_path], device="cuda")
+    bench["result"] = result
+    log(f"[parallel-serve] bench_sharded N=2: grouped "
+        f"{result['configs']['grouped_n1']['wall_s']:.4f} -> "
+        f"{result['configs']['grouped_n2']['wall_s']:.4f} s a call, raw "
+        f"deviation {result['configs']['grouped_n2']['max_abs_dev_vs_n1']:.2e}"
+        f"; scan {result['configs']['scan_n1']['wall_s']:.4f} -> "
+        f"{result['configs']['scan_n2']['wall_s']:.4f} s a call, "
+        f"{result['configs']['scan_n2']['share_within_1px']:.1%} within 1 px")
+    log_counts("parallel-serve", bench)
+    out["bench"] = bench
+
+    failed = [k for k in ("squad", "scan") if not out[k]["vs_unsharded"]["ok"]]
+    failed += [f"multipair pair {i}" for i, r in
+               enumerate(multi["vs_unsharded"]) if not r["ok"]]
+    if failed:
+        raise AssertionError(f"[parallel-serve] sharded answers disagree "
+                             f"with the unsharded ones: {failed}")
+    if not (kernel_variants(attention, squad).get("tile")
+            and kernel_variants(attention, multi).get("tile")
+            and kernel_variants(attention, scan).get("row")
+            and kernel_variants(attention, scan).get("tile")):
+        raise AssertionError("[parallel-serve] the sharded paths did not "
+                             "launch both the tile and the row kernel")
+    if stepper.device_canvas_count != [stepper.canvas_count // 2] * 2:
+        raise AssertionError("[parallel-serve] the squads did not split "
+                             "in halves")
+    return out
+
+
+def parallel_run(attention, mods, par, cfg, train_cfg, batch, **kw) -> dict:
+    """``PARALLEL_TRAIN_STEPS`` steps from the flagship's backbone and fresh
+    weights elsewhere (seed 0), each step's dropout seeded as the Trainer
+    seeds it; with ``mesh`` (and ``zero1_axis``) through the data-parallel
+    step."""
+    model = mods.build_model(cfg)
+    par.init_weights(model, torch.Generator().manual_seed(0))
+    flagship_backbone(mods, model)
+    state = par.create_train_state(model, train_cfg, None, "cuda", **kw)
+    step = par.make_train_step(train_cfg, kw.get("mesh"))
+    generator = torch.Generator(device=batch["crop"].device)
+    events, losses = [], []
+    with counted(attention, {}) as record:
+        for i in range(PARALLEL_TRAIN_STEPS):
+            generator.manual_seed((train_cfg.seed + 1) * 1_000_003 + i)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            events.append(event)
+            state, metrics = step(state, batch, generator)
+            losses.append(metrics["loss"])
+        last = torch.cuda.Event(enable_timing=True)
+        last.record()
+    marks = events + [last]
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    record.update(losses=[float(x) for x in losses],
+                  ms_per_step=statistics.median(ms[1:]), ms_by_step=ms,
+                  weights={k: v.detach().clone() for k, v in
+                           model.named_parameters() if v.requires_grad},
+                  zero1_tensors=len(state.optimizer.zero1))
+    del model, state
+    torch.cuda.empty_cache()
+    return record
+
+
+def deviation(run: dict, ref: dict) -> tuple:
+    """(largest relative loss difference, largest weight difference)."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(run["losses"], ref["losses"]))
+    weight_abs = max(float((run["weights"][k] - v).abs().max())
+                     for k, v in ref["weights"].items())
+    return loss_rel, weight_abs
+
+
+def phase_parallel_train(attention, mods, par, batch) -> dict:
+    """The data-parallel train step in a one-rank NCCL process group (a
+    FileStore under OUT_DIR, not a TCP port): 5 ``TrainConfig()`` steps at
+    batch 24 from the same state and batch as 5 unsharded steps, then the
+    same with ZeRO-1; ms a step for each.
+
+    The unsharded step does not reproduce itself bit for bit under cuDNN's
+    default algorithms (the input projection's weight gradient sums in
+    another order from run to run), and Adam's first steps turn that
+    rounding into weight differences near the rate. So two unsharded runs
+    are first compared as they are, for the reading, and the gated runs use
+    ``torch.backends.cudnn.deterministic``."""
+    cfg = mods.COTRConfig()
+    train_cfg = mods.TrainConfig()
+    store_path = os.path.join(OUT_DIR, "parallel_train_store")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    started = par.init_distributed(
+        "cuda", store=torch.distributed.FileStore(store_path, 1), rank=0,
+        world_size=1)
+    if not started:
+        raise AssertionError("[parallel-train] a process group was running")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        mesh = par.make_mesh()
+        backend = torch.distributed.get_backend()
+        run = functools.partial(parallel_run, attention, mods, par, cfg,
+                                train_cfg, batch)
+        first, again = run(), run()
+        free_rel, free_abs = deviation(again, first)
+        log(f"[parallel-train] two unsharded runs under cuDNN's default "
+            f"algorithms: loss within {free_rel:.2e} rel, weights within "
+            f"{free_abs:.2e} ({first['ms_per_step']:.1f} and "
+            f"{again['ms_per_step']:.1f} ms a step)")
+        torch.backends.cudnn.deterministic = True
+        runs = {"unsharded": run(), "dp": run(mesh=mesh),
+                "dp + zero1": run(mesh=mesh, zero1_axis="data")}
+        out = {"backend": backend, "mesh": mesh.shape,
+               "default_algorithms": dict(
+                   loss_max_rel=free_rel, weight_max_abs=free_abs,
+                   ms_per_step=[first["ms_per_step"],
+                                again["ms_per_step"]])}
+        ref = runs["unsharded"]
+        for name in ("dp", "dp + zero1"):
+            got = runs[name]
+            loss_rel, weight_abs = deviation(got, ref)
+            out[name] = dict(ms_per_step=got["ms_per_step"],
+                             ms_by_step=got["ms_by_step"],
+                             losses=got["losses"], loss_max_rel=loss_rel,
+                             weight_max_abs=weight_abs,
+                             launches=got["launches"],
+                             zero1_tensors=got["zero1_tensors"])
+            log(f"[parallel-train] {name} over {backend} (world size 1) vs "
+                f"unsharded, deterministic cuDNN, {PARALLEL_TRAIN_STEPS} "
+                f"steps at batch {batch['crop'].shape[0]}: loss within "
+                f"{loss_rel:.2e} rel (tol {PARALLEL_LOSS_RTOL}), weights "
+                f"within {weight_abs:.2e} (tol {RESUME_ATOL}); "
+                f"{got['ms_per_step']:.1f} ms a step against "
+                f"{ref['ms_per_step']:.1f} ms")
+            if not (loss_rel <= PARALLEL_LOSS_RTOL
+                    and weight_abs <= RESUME_ATOL):
+                raise AssertionError(f"[parallel-train] {name} differs from "
+                                     "the unsharded step")
+            if got["launches"]:
+                raise AssertionError(f"[parallel-train] {name} launched the "
+                                     "forward-only attention kernel")
+        out["unsharded"] = dict(ms_per_step=ref["ms_per_step"],
+                                ms_by_step=ref["ms_by_step"],
+                                losses=ref["losses"])
+        out["launches"] = sum(r["launches"] for r in
+                              (first, again, *runs.values()))
+        out["shape_counts"] = []
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.distributed.destroy_process_group()
+
+
 def merged_shape_counts(records) -> list:
     total = {}
     for record in records:
@@ -2310,6 +2611,18 @@ def main() -> int:
                           SparseEngine, runner, big_pair)
     multipair = phase_multipair(attention, grouped, FasterSparseEngine,
                                 runner)
+    from cotr_tpu_torch.models.cotr import init_weights
+    from cotr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from cotr_tpu_torch.tools import bench_sharded
+
+    # the parallel phases' entry points
+    par = types.SimpleNamespace(
+        make_mesh=make_mesh, init_distributed=init_distributed,
+        FasterSparseEngine=FasterSparseEngine, SparseEngine=SparseEngine,
+        bench_sharded=bench_sharded, init_weights=init_weights,
+        create_train_state=train_step_mod.create_train_state,
+        make_train_step=train_step_mod.make_train_step)
+    par_serve = phase_parallel_serve(attention, par, runner, big_pair)
     del runner
     torch.cuda.empty_cache()
     train_parity = phase_train_parity(load_model, COTRConfig(), loss_mod,
@@ -2325,7 +2638,10 @@ def main() -> int:
                                       out_dir)
         convert = phase_convert(attention, mods, os.path.join(
             out_dir, "checkpoints", "checkpoint.pt"), out_dir)
-        del trainer, batch
+        del trainer
+        torch.cuda.empty_cache()
+        par_train = phase_parallel_train(attention, mods, par, batch)
+        del batch
         torch.cuda.empty_cache()
 
         texture_dir = os.path.join(out_dir, "textures")
@@ -2425,7 +2741,16 @@ def main() -> int:
              **{f"demo twin, {tag}": run for tag, run in demos.items()},
              "eval-suite twin, 8 textures x 5 seeds": suite["eval-suite"],
              "diagnose-tail twin, 6 textures x 3 seeds":
-                 suite["diagnose-tail"]}
+                 suite["diagnose-tail"],
+             "squad engine on a mesh of cuda:0 x 2, 2,000 queries":
+                 par_serve["squad"],
+             "multi-pair on the mesh, 8 pairs x 32 queries":
+                 par_serve["multipair"],
+             "cycle-consistent scan engine on the mesh, 1 pair":
+                 par_serve["scan"],
+             "bench_sharded twin, N = 2": par_serve["bench"],
+             "train steps of [parallel-train], 5 x 5 (the einsum path)":
+                 par_train}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
     rows += phase_path_shapes(attention, shape_counts, rows)
@@ -2457,7 +2782,9 @@ def main() -> int:
                        synthetic_eval=synth_eval, megadepth_data=md_data,
                        device_synth=md_synth, megadepth_train=md_train,
                        megadepth_eval=md_eval, convert=convert,
-                       demos=demos, eval_suite=suite, kernels=kernels),
+                       demos=demos, eval_suite=suite,
+                       parallel_serve=par_serve, parallel_train=par_train,
+                       kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
         f"{squad['wall_s']:.3f} s; [multipair] wall "
@@ -2474,7 +2801,13 @@ def main() -> int:
         + ", ".join(f"{tag} {run['wall_s']:.2f} s" for tag, run in
                     demos.items())
         + f"; [eval-suite] {suite['eval-suite']['wall_s']:.2f} s, "
-        f"[diagnose-tail] {suite['diagnose-tail']['wall_s']:.2f} s")
+        f"[diagnose-tail] {suite['diagnose-tail']['wall_s']:.2f} s; "
+        f"[parallel-serve] squad engine on the mesh "
+        f"{par_serve['squad']['wall_s']:.2f} s (unsharded "
+        f"{par_serve['squad']['unsharded_wall_s']:.2f} s); [parallel-train] "
+        f"{par_train['dp']['ms_per_step']:.1f} ms a DP step, "
+        f"{par_train['dp + zero1']['ms_per_step']:.1f} ms with ZeRO-1, "
+        f"{par_train['unsharded']['ms_per_step']:.1f} ms unsharded")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,13 @@ accuracy tools (``.convert_checkpoint``, ``.publish_flagship``,
 (``python -m cotr_tpu_torch.demos.demo_single_pair``, ``.demo_face``,
 ``.demo_homography``, ``.demo_guided_matching``, ``.demo_reconstruction``,
 ``.demo_wbs``), which read ``.npy`` images and write PNG pictures without an
-image library.
+image library. ``parallel/`` holds the device meshes: a process mesh inside
+a ``torch.distributed`` group, over which the ``Trainer`` is data-parallel
+(``torchrun``) and the train step also runs Megatron tensor parallelism and
+ZeRO-1, and a local mesh of one process's devices, over which the engines
+split their squads and tasks; ``tools/bench_sharded`` and
+``tools/dryrun_multichip`` are the twins of the JAX package's sharded
+inference bench and multi-device dry run.
 """
 
 __version__ = "0.1.0"

@@ -102,8 +102,10 @@ class TrainConfig:
     bidirectional: bool = True
     cycle_consis: bool = True
     seed: int = 0
-    #: data-parallel shards of cotr_tpu's train step; the port accepts the
-    #: field and trains on one device.
+    #: the data-parallel world size: the ranks of the torch.distributed
+    #: process group (torchrun --nproc_per_node N), each on one device.
+    #: If given it must equal the world size (1 without a process group)
+    #: and divide batch_size; the Trainer raises otherwise.
     num_devices: Optional[int] = None
     out_dir: str = "out"
     suffix: str = ""

@@ -21,7 +21,7 @@ import queue
 import threading
 from collections import deque
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -56,14 +56,25 @@ class PrefetchLoader:
     executor: "thread" (default) or "process" (the dataset must then be
         picklable).
     prefetch: most finished batches buffered ahead of the consumer.
+    shard: (index, count) under data parallelism: ``batch_size`` stays the
+        global batch and each batch holds only the ``index``-th of its
+        ``count`` equal row blocks, the sample indices the one-process
+        loader would put there (``parallel.mesh.process_shard()`` gives a
+        rank's pair).
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  prefetch: int = 4, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = True, executor: str = "thread"):
+                 drop_last: bool = True, executor: str = "thread",
+                 shard: Tuple[int, int] = (0, 1)):
         if executor not in ("thread", "process"):
             raise ValueError(f"executor must be 'thread' or 'process', got "
                              f"{executor!r}")
+        index, count = shard
+        if not 0 <= index < count or batch_size % count:
+            raise ValueError(f"shard {shard}: needs 0 <= index < count and "
+                             f"a batch ({batch_size}) of count equal blocks")
+        self.shard = (index, count)
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
@@ -98,6 +109,13 @@ class PrefetchLoader:
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        index, count = self.shard
+        if count > 1:
+            if len(batches) and len(batches[-1]) % count:
+                raise ValueError(f"a last batch of {len(batches[-1])} does "
+                                 f"not split over {count} ranks: use "
+                                 "drop_last")
+            batches = [np.array_split(b, count)[index] for b in batches]
 
         out_q: "queue.Queue" = queue.Queue(maxsize=max(1, self.prefetch))
         stop = threading.Event()

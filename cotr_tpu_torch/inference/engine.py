@@ -69,12 +69,16 @@ class SparseEngine:
     seed: seed of the confidence-masked random seeding.
     crop_dtype: dtype of the crop matrix products; by default the model's
         compute dtype.
+    mesh: a local mesh (``parallel.mesh.make_mesh``): the refinement's task
+        axis is split over its devices (each dispatch's tasks padded to a
+        multiple of its size); the dense seed pass stays on the runner's
+        device, as in the JAX package.
     seed_stride: dense seed-pass grid stride (1 = the full 131k-query grid).
     """
 
     def __init__(self, runner: ModelRunner, batch_size: int = 256,
                  mode: str = "stretching", seed: int = 0, crop_dtype=None,
-                 seed_stride: int = 1):
+                 mesh=None, seed_stride: int = 1):
         if mode not in ("stretching", "tile"):
             raise ValueError(f"mode must be 'stretching' or 'tile', got "
                              f"{mode!r}")
@@ -89,7 +93,8 @@ class SparseEngine:
         cfg = getattr(runner.model, "cfg", None)
         self.crop_dtype = crop_dtype if crop_dtype is not None else \
             getattr(torch, getattr(cfg, "dtype", "float32"))
-        self.refiner = BatchRefiner(runner, crop_dtype=self.crop_dtype)
+        self.refiner = BatchRefiner(runner, crop_dtype=self.crop_dtype,
+                                    mesh=mesh)
         self.rng = np.random.RandomState(seed)
         self.total_tasks = 0
         # opt-in diagnostics: when True, each cotr_corr_multiscale call
@@ -220,8 +225,13 @@ class SparseEngine:
         for start in range(0, len(loc_from), self.batch_size):
             lf = loc_from[start:start + self.batch_size]
             lt = loc_to[start:start + self.batch_size]
+            n = len(lf)
+            pad = -n % self.refiner.shards
+            if pad:
+                lf = np.concatenate([lf, np.zeros((pad, 2))], axis=0)
+                lt = np.concatenate([lt, np.zeros((pad, 2))], axis=0)
             hist = self.refiner.refine(dev_a, dev_b, lf, lt, s_from, s_to,
-                                       zoom_ins, converge_iters)
+                                       zoom_ins, converge_iters)[:, :n]
             if np.isnan(hist).any():
                 raise ValueError("NaN in refinement predictions")
             histories.append(hist)
@@ -506,17 +516,21 @@ class FasterSparseEngine(SparseEngine):
     image_bucket: multi-pair image stacks are padded to multiples of this.
     squads_impl: "native" (the C++ squad formation, built at first use) or
         "numpy".
+    mesh: a local mesh: the squad axis of every device call is split over
+        its devices; group_bucket and group_cap must be multiples of its
+        size.
     """
 
     def __init__(self, runner: ModelRunner, batch_size: int = 256,
                  mode: str = "stretching", seed: int = 0, max_load: int = 256,
-                 crop_dtype=None, safe_area: float = 0.5,
+                 mesh=None, crop_dtype=None, safe_area: float = 0.5,
                  group_cap: int = 128, group_bucket: int = 8,
                  member_bucket: int = 64, member_ladder: bool = False,
                  seed_stride: int = 1, image_bucket: int = 256,
                  squads_impl: str = "native"):
         super().__init__(runner, batch_size, mode, seed,
-                         crop_dtype=crop_dtype, seed_stride=seed_stride)
+                         crop_dtype=crop_dtype, mesh=mesh,
+                         seed_stride=seed_stride)
         # above 1.0 members would leave the pilot's patch (queries outside
         # the canvas); at or below 0 grouping means nothing
         if not 0.0 < safe_area <= 1.0:
@@ -532,7 +546,13 @@ class FasterSparseEngine(SparseEngine):
         self.member_ladder = member_ladder
         self.image_bucket = image_bucket
         self.squads_impl = squads_impl
-        self._stepper = GroupedStepper(runner, crop_dtype=self.crop_dtype)
+        shards = self.refiner.shards
+        if group_bucket % shards or group_cap % shards:
+            raise ValueError(f"group_bucket={group_bucket} and group_cap="
+                             f"{group_cap} must be multiples of the mesh's "
+                             f"{shards} devices")
+        self._stepper = GroupedStepper(runner, crop_dtype=self.crop_dtype,
+                                       mesh=mesh)
 
     @classmethod
     def from_config(cls, runner: ModelRunner, cfg, **kw):

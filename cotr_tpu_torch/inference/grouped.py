@@ -19,11 +19,16 @@ the same few sizes as there (``group_bucket`` or ``group_cap`` canvases,
 ``member_bucket`` or ``max_load + 1`` members), which keeps
 ``dispatch_count`` and ``canvas_count`` equal to the JAX engine's;
 ``group_cap`` and ``CELL_CAP`` also bound the device memory of one call.
+
+With a local mesh (``parallel.mesh``) the stepper splits the squad axis of
+every dispatch over the mesh's devices, as the JAX package shards it over
+its mesh: each device crops, encodes and decodes its share of the squads
+with its own copy of the model and images, and no collective runs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +38,8 @@ from cotr_tpu_torch.ops.canvas import normalize_canvas
 from cotr_tpu_torch.ops.sampling import (crop_and_resize_matmul,
                                          crop_and_resize_window_indexed,
                                          crop_and_resize_windowed)
+from cotr_tpu_torch.parallel.mesh import (LocalMesh, replicate,
+                                          require_local_mesh)
 from cotr_tpu_torch.utils.constants import MAX_SIZE
 
 SAFE_AREA = 0.5
@@ -155,28 +162,58 @@ class GroupedStepper:
     """The device step: (G pilot boxes, (G, M) queries) -> predictions, on
     the runner's device, under ``torch.inference_mode()``.
 
+    With a local ``mesh`` the squad axis G is split in equal shares over
+    the mesh's devices, in order (G must be a multiple of the mesh's size:
+    the engine's ``group_bucket`` and ``group_cap`` are); the model is
+    copied once to each distinct device other than the runner's, the images
+    at each dispatch, and the predictions come back on the runner's device
+    in squad order.
+
     ``dispatch_count`` and ``canvas_count`` count device calls and padded
-    canvas rows since construction. Sharding the squad axis over several
-    cards is not part of this class yet.
+    canvas rows since construction, over all devices, as the JAX package
+    counts them; ``device_canvas_count`` counts the canvas rows of each
+    entry of the mesh (one entry without a mesh).
     """
 
-    def __init__(self, runner, crop_dtype=torch.float32):
+    def __init__(self, runner, crop_dtype=torch.float32,
+                 mesh: Optional[LocalMesh] = None):
         self.runner = runner
         self._crop_dtype = crop_dtype
+        self.mesh = None if mesh is None else \
+            require_local_mesh(mesh, "GroupedStepper")
+        self._models = [runner.model] if mesh is None else \
+            replicate(runner.model, self.mesh, home=runner.device)
         self.dispatch_count = 0
         self.canvas_count = 0
+        self.device_canvas_count = [0] * len(self._models)
 
-    def _upload(self, array, dtype=torch.float32) -> torch.Tensor:
+    def _upload(self, array, device, dtype=torch.float32) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(
-            self.runner.device, dtype)
+            device, dtype)
 
-    def _encode_decode(self, crops_a, crops_b, queries) -> torch.Tensor:
-        model = self.runner.model
+    def _encode_decode(self, model, crops_a, crops_b, queries
+                       ) -> torch.Tensor:
         canvas = normalize_canvas(torch.cat([crops_a, crops_b], dim=2))
         del crops_a, crops_b
         memory = model.encode(canvas)
         del canvas
-        return model.decode(memory, self._upload(queries))
+        return model.decode(memory, self._upload(queries, memory.device))
+
+    def _shares(self, n: int) -> list:
+        """Each mesh entry's (index, model, slice) of ``n`` squads."""
+        k = len(self._models)
+        if n % k:
+            raise ValueError(f"{n} squads do not split over the mesh's {k} "
+                             "devices: group_bucket and group_cap must be "
+                             "multiples of its size")
+        per = n // k
+        return [(i, model, slice(i * per, (i + 1) * per))
+                for i, model in enumerate(self._models)]
+
+    def _gather(self, parts) -> torch.Tensor:
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.runner.device) for p in parts], dim=0)
 
     def _step_for(self, boxes_from: np.ndarray, boxes_to: np.ndarray
                   ) -> Tuple:
@@ -204,8 +241,9 @@ class GroupedStepper:
 
     def _crop(self, img, boxes: np.ndarray, size):
         if size is None:
-            return crop_and_resize_matmul(img, self._upload(boxes), MAX_SIZE,
-                                          compute_dtype=self._crop_dtype)
+            return crop_and_resize_matmul(
+                img, self._upload(boxes, img.device), MAX_SIZE,
+                compute_dtype=self._crop_dtype)
         return crop_and_resize_windowed(img, boxes, MAX_SIZE, size,
                                         compute_dtype=self._crop_dtype)
 
@@ -217,12 +255,25 @@ class GroupedStepper:
         k+1 while the device computes chunk k."""
         boxes_from = np.asarray(boxes_from, np.float32)
         boxes_to = np.asarray(boxes_to, np.float32)
+        queries = np.asarray(queries, np.float32)
         size_f, size_t = self._step_for(boxes_from, boxes_to)
+        shares = self._shares(len(boxes_from))
         self.dispatch_count += 1
         self.canvas_count += len(boxes_from)
-        return self._encode_decode(self._crop(img_a, boxes_from, size_f),
-                                   self._crop(img_b, boxes_to, size_t),
-                                   np.asarray(queries, np.float32))
+        imgs_a = self._replicas(img_a)
+        imgs_b = self._replicas(img_b)
+        parts = []
+        for i, model, sl in shares:
+            self.device_canvas_count[i] += sl.stop - sl.start
+            parts.append(self._encode_decode(
+                model, self._crop(imgs_a[i], boxes_from[sl], size_f),
+                self._crop(imgs_b[i], boxes_to[sl], size_t), queries[sl]))
+        return self._gather(parts)
+
+    def _replicas(self, tensor) -> list:
+        if self.mesh is None:
+            return [tensor]
+        return replicate(tensor, self.mesh)
 
     @torch.inference_mode()
     def dispatch_indexed(self, imgs_a, imgs_b, idx, boxes_from, boxes_to,
@@ -233,23 +284,31 @@ class GroupedStepper:
         :func:`window_ladder`."""
         boxes_from = np.asarray(boxes_from, np.float32)
         boxes_to = np.asarray(boxes_to, np.float32)
+        queries = np.asarray(queries, np.float32)
+        idx = np.asarray(idx, np.int32)
         min_a = min(int(imgs_a.shape[1]), int(imgs_a.shape[2]))
         min_b = min(int(imgs_b.shape[1]), int(imgs_b.shape[2]))
         wf = window_ladder(
             float(boxes_from[:, 2].max()) if len(boxes_from) else 1.0, min_a)
         wt = window_ladder(
             float(boxes_to[:, 2].max()) if len(boxes_to) else 1.0, min_b)
+        shares = self._shares(len(boxes_from))
         self.dispatch_count += 1
         self.canvas_count += len(boxes_from)
-        idx = np.asarray(idx, np.int32)
-        crops_a = crop_and_resize_window_indexed(
-            imgs_a, boxes_from, idx, MAX_SIZE, wf,
-            compute_dtype=self._crop_dtype)
-        crops_b = crop_and_resize_window_indexed(
-            imgs_b, boxes_to, idx, MAX_SIZE, wt,
-            compute_dtype=self._crop_dtype)
-        return self._encode_decode(crops_a, crops_b,
-                                   np.asarray(queries, np.float32))
+        stacks_a = self._replicas(imgs_a)
+        stacks_b = self._replicas(imgs_b)
+        parts = []
+        for i, model, sl in shares:
+            self.device_canvas_count[i] += sl.stop - sl.start
+            crops_a = crop_and_resize_window_indexed(
+                stacks_a[i], boxes_from[sl], idx[sl], MAX_SIZE, wf,
+                compute_dtype=self._crop_dtype)
+            crops_b = crop_and_resize_window_indexed(
+                stacks_b[i], boxes_to[sl], idx[sl], MAX_SIZE, wt,
+                compute_dtype=self._crop_dtype)
+            parts.append(self._encode_decode(model, crops_a, crops_b,
+                                             queries[sl]))
+        return self._gather(parts)
 
     def __call__(self, img_a, img_b, boxes_from, boxes_to, queries):
         return self.dispatch(img_a, img_b, boxes_from, boxes_to,

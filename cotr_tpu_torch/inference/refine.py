@@ -15,17 +15,24 @@ predictions; on the first exact revisit the loop [first match .. previous]
 is averaged and the task freezes, and tasks reaching the iteration cap
 freeze on their last value. The returned history has one row per zoom
 level, the last being the converged value.
+
+With a local mesh (``parallel.mesh``) the task axis is split over the mesh's
+devices, as the JAX package shards it over its mesh: tasks are independent,
+so each device refines its share with its own copy of the model (made once
+for each distinct device) and of the images, and no collective runs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from cotr_tpu_torch.ops.canvas import normalize_canvas
 from cotr_tpu_torch.ops.sampling import crop_and_resize_matmul
+from cotr_tpu_torch.parallel.mesh import (LocalMesh, replicate,
+                                          require_local_mesh, shard_batch)
 from cotr_tpu_torch.utils.constants import MAX_SIZE
 
 
@@ -138,11 +145,26 @@ def refine_loop(forward, img_a: torch.Tensor, img_b: torch.Tensor,
 
 
 class BatchRefiner:
-    """Runs the zoom refinement for a runner's model on its device."""
+    """Runs the zoom refinement for a runner's model on its device, or with
+    a local ``mesh`` on the mesh's devices (the task axis split in equal
+    shares, in order)."""
 
-    def __init__(self, runner, crop_dtype=torch.float32):
+    def __init__(self, runner, crop_dtype=torch.float32,
+                 mesh: Optional[LocalMesh] = None):
         self.runner = runner
         self.crop_dtype = crop_dtype
+        self.mesh = None if mesh is None else \
+            require_local_mesh(mesh, "BatchRefiner")
+        # the model on each entry of the mesh, copied at the first use
+        self._models = None
+        #: tasks refined on each entry of the mesh (one entry without a
+        #: mesh) since construction
+        self.device_task_count = [0] * self.shards
+
+    @property
+    def shards(self) -> int:
+        """The entries the task axis is split over (1 without a mesh)."""
+        return 1 if self.mesh is None else len(self.mesh.devices)
 
     def prepare_image(self, img: np.ndarray) -> torch.Tensor:
         """uint8 or float HWC image -> [0, 1] float32 image on the device.
@@ -164,14 +186,38 @@ class BatchRefiner:
                s_from: float, s_to: float, zoom_ins: Sequence[float],
                converge_iters: int = 1) -> np.ndarray:
         """Run the full zoom schedule for T tasks; returns the per-zoom-level
-        history (len(zoom_ins), T, 2) as numpy, the final row converged."""
-        dev = self.runner.device
-        history = refine_loop(
-            self.runner.forward, img_a, img_b,
-            torch.as_tensor(np.asarray(loc_from), dtype=torch.float32,
-                            device=dev),
-            torch.as_tensor(np.asarray(loc_to0), dtype=torch.float32,
-                            device=dev),
-            s_from, s_to, zoom_schedule(zoom_ins, converge_iters),
-            final_start=len(zoom_ins) - 1, crop_dtype=self.crop_dtype)
-        return history.cpu().numpy()
+        history (len(zoom_ins), T, 2) as numpy, the final row converged.
+        With a mesh, T must be a multiple of its size (the engine pads)."""
+        zooms = zoom_schedule(zoom_ins, converge_iters)
+        final_start = len(zoom_ins) - 1
+        loc_from = torch.as_tensor(np.asarray(loc_from), dtype=torch.float32)
+        loc_to0 = torch.as_tensor(np.asarray(loc_to0), dtype=torch.float32)
+        if self.mesh is None:
+            dev = self.runner.device
+            history = refine_loop(
+                self.runner.forward, img_a, img_b, loc_from.to(dev),
+                loc_to0.to(dev), s_from, s_to, zooms, final_start,
+                crop_dtype=self.crop_dtype)
+            self.device_task_count[0] += len(loc_from)
+            return history.cpu().numpy()
+        if len(loc_from) % self.shards:
+            raise ValueError(f"{len(loc_from)} tasks do not split over the "
+                             f"mesh's {self.shards} devices; pad them to a "
+                             "multiple")
+        if self._models is None:
+            self._models = replicate(self.runner.model, self.mesh,
+                                     home=self.runner.device)
+        froms = shard_batch(loc_from, self.mesh)
+        tos = shard_batch(loc_to0, self.mesh)
+        imgs_a = replicate(img_a, self.mesh)
+        imgs_b = replicate(img_b, self.mesh)
+        # every share is enqueued before any is read back
+        shares = []
+        for i, model in enumerate(self._models):
+            shares.append(refine_loop(
+                lambda canvas, queries, m=model: m.decode(m.encode(canvas),
+                                                          queries),
+                imgs_a[i], imgs_b[i], froms[i], tos[i], s_from, s_to,
+                zooms, final_start, crop_dtype=self.crop_dtype))
+            self.device_task_count[i] += len(froms[i])
+        return np.concatenate([h.cpu().numpy() for h in shares], axis=1)

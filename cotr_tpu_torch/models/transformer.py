@@ -37,9 +37,15 @@ from cotr_tpu_torch.models.layers import LayerNorm, Linear
 from cotr_tpu_torch.ops.attention import (einsum_attention,
                                           flash_cross_attention)
 from cotr_tpu_torch.ops.dropout import dropout
+from cotr_tpu_torch.parallel.tp import copy_to_model, row_parallel
 
 
 class MultiHeadAttention(nn.Module):
+    """Multi-head attention. Under tensor parallelism
+    (``parallel.tp.shard_model``) the block holds ``nheads / tp_size`` of
+    the heads: its q/k/v projections are column-parallel and its
+    ``out_proj`` row-parallel over ``tp_group``."""
+
     def __init__(self, d_model: int, nheads: int, dropout: float = 0.0):
         super().__init__()
         self.nheads = nheads
@@ -48,16 +54,21 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = Linear(d_model, d_model)
         self.v_proj = Linear(d_model, d_model)
         self.out_proj = Linear(d_model, d_model)
+        self.tp_group = None
+        self.tp_size = 1
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, lq, d = q.shape
         lk = k.shape[1]
-        h = self.nheads
-        qp = self.q_proj(q).reshape(b, lq, h, d // h)
-        kp = self.k_proj(k).reshape(b, lk, h, d // h)
-        vp = self.v_proj(v).reshape(b, lk, h, d // h)
+        h = self.nheads // self.tp_size  # the heads this block holds
+        hd = d // self.nheads
+        if self.tp_group is not None:
+            q, k, v = copy_to_model((q, k, v), self.tp_group)
+        qp = self.q_proj(q).reshape(b, lq, h, hd)
+        kp = self.k_proj(k).reshape(b, lk, h, hd)
+        vp = self.v_proj(v).reshape(b, lk, h, hd)
         dropout_active = self.training and self.dropout > 0.0
         wants_grad = torch.is_grad_enabled() and (
             qp.requires_grad or kp.requires_grad or vp.requires_grad)
@@ -66,22 +77,34 @@ class MultiHeadAttention(nn.Module):
         else:
             out = einsum_attention(qp, kp, vp, key_padding_mask, self.dropout,
                                    self.training, generator)
-        return self.out_proj(out.reshape(b, lq, d))
+        out = out.reshape(b, lq, h * hd)
+        if self.tp_group is not None:
+            return row_parallel(self.out_proj, out, self.tp_group)
+        return self.out_proj(out)
 
 
 class FFN(nn.Module):
+    """ReLU feed-forward block; under tensor parallelism ``linear1`` is
+    column-parallel and ``linear2`` row-parallel over ``tp_group``."""
+
     def __init__(self, d_model: int, dim_feedforward: int,
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
+        self.tp_group = None
+        self.tp_size = 1
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = F.relu(self.linear1(x))
-        return self.linear2(dropout(y, self.dropout, self.training,
-                                    generator))
+        if self.tp_group is not None:
+            (x,) = copy_to_model((x,), self.tp_group)
+        y = dropout(F.relu(self.linear1(x)), self.dropout, self.training,
+                    generator)
+        if self.tp_group is not None:
+            return row_parallel(self.linear2, y, self.tp_group)
+        return self.linear2(y)
 
 
 class EncoderLayer(nn.Module):

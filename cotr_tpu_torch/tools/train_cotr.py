@@ -16,6 +16,13 @@ that disagrees with the options refuses the run unless ``--resume`` or a
 ``data.device_synth`` and synthesizes the supervision inside the train step
 (stage 1/2 only). It runs on the card; ``main(argv, device="cpu")`` runs it
 on the CPU.
+
+Data-parallel over N cards of a node: ``torchrun --nproc_per_node N -m
+cotr_tpu_torch.tools.train_cotr --num_devices N ...``. ``--batch_size``
+stays the global batch; each rank's loader makes its rows, from datasets
+whose random streams are seeded apart for each rank (a MegaDepth sample
+draws from its dataset's stream, so the rows are not the one-process
+batch's); rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -87,8 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", type=str2bool, default=False)
     ap.add_argument("--load_weights_path", default=None)
     ap.add_argument("--num_devices", type=int, default=None,
-                    help="accepted for the JAX script's command lines; the "
-                         "port trains on one device")
+                    help="data-parallel ranks (torchrun --nproc_per_node); "
+                         "must be the world size")
     ap.add_argument("--dtype", default="float32")
     return ap
 
@@ -135,9 +142,18 @@ def data_config(args: argparse.Namespace):
         zoom_jitter=args.zoom_jitter)
 
 
+#: the datasets' seeds of rank r are the one-process seeds plus r times this
+RANK_SEED_STRIDE = 1000
+
+
 def build_datasets(args: argparse.Namespace, seed: int = 0):
     """(train, validation) datasets as the JAX script builds them: seeds
-    ``seed`` and ``seed + 100``; the validation set in the host layout."""
+    ``seed`` and ``seed + 100``; the validation set in the host layout. In a
+    process group each rank adds ``RANK_SEED_STRIDE`` times its rank to
+    both."""
+    from cotr_tpu_torch.parallel.mesh import process_shard
+
+    seed += RANK_SEED_STRIDE * process_shard()[0]
     from cotr_tpu_torch.data.dataset import CotrDataset, CotrZoomDataset
 
     data_cfg = data_config(args)
@@ -151,7 +167,7 @@ def build_datasets(args: argparse.Namespace, seed: int = 0):
         ds_kw["device_synth"] = True
     train_ds = ds_cls(data_cfg, "train", seed=seed, **ds_kw)
     val_ds = ds_cls(data_cfg, "val", seed=seed + 100)
-    print(f"train queries: {len(train_ds)}, val queries: {len(val_ds)}")
+    _say(f"train queries: {len(train_ds)}, val queries: {len(val_ds)}")
     return train_ds, val_ds
 
 
@@ -164,13 +180,20 @@ def load_weights(model, path: str, model_cfg) -> None:
 
         state = load_torch_checkpoint(path, model_cfg,
                                       device="cpu").state_dict()
-        print(f"loaded torch weights: {path}")
+        _say(f"loaded torch weights: {path}")
     else:
         from cotr_tpu_torch.models.checkpoint_io import load_params
 
         state = load_params(path, model_cfg)
-        print(f"loaded weights: {path}")
+        _say(f"loaded weights: {path}")
     model.load_state_dict(state, strict=True)
+
+
+def _say(msg: str) -> None:
+    from cotr_tpu_torch.parallel.mesh import is_rank_zero
+
+    if is_rank_zero():
+        print(msg)
 
 
 def build_trainer(args: argparse.Namespace, train_ds, val_ds, run_dir: str,
@@ -180,21 +203,25 @@ def build_trainer(args: argparse.Namespace, train_ds, val_ds, run_dir: str,
     prefetching from the two datasets."""
     from cotr_tpu_torch.data.loader import PrefetchLoader
     from cotr_tpu_torch.models.cotr import build_model
+    from cotr_tpu_torch.parallel.mesh import process_shard, replicate
     from cotr_tpu_torch.training.trainer import Trainer
 
     model_cfg, train_cfg = configs(args)
     workers = max((os.cpu_count() or 2) // 2, 2)
+    shard = process_shard()
     trainer = Trainer(
         build_model(model_cfg), model_cfg, train_cfg,
         train_loader=PrefetchLoader(train_ds, args.batch_size,
                                     num_workers=workers,
-                                    seed=train_cfg.seed),
+                                    seed=train_cfg.seed, shard=shard),
         val_loader=PrefetchLoader(val_ds, args.batch_size, shuffle=False,
-                                  num_workers=workers),
+                                  num_workers=workers, shard=shard),
         out_dir=run_dir, device=device)
     trainer.initialize(seed=train_cfg.seed)
     if args.load_weights_path:
         load_weights(trainer.state.model, args.load_weights_path, model_cfg)
+        if trainer.mesh is not None:
+            replicate(trainer.state.model, trainer.mesh)
     return trainer
 
 
@@ -216,9 +243,23 @@ def run_dir_of(args: argparse.Namespace) -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda"):
-    """Train; returns the trainer after its last step."""
+    """Train; returns the trainer after its last step. Under ``torchrun``
+    each rank joins the process group first and leaves it at the end."""
+    from cotr_tpu_torch.parallel.mesh import init_distributed, is_rank_zero
+
     args = build_parser().parse_args(argv)
-    if args.confirm and not args.use_cc:
+    started = init_distributed(device)
+    try:
+        return _train(args, device, is_rank_zero())
+    finally:
+        if started:
+            import torch
+
+            torch.distributed.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, device, is_main: bool):
+    if args.confirm and not args.use_cc and is_main:
         from cotr_tpu_torch.utils.misc import confirm, print_notification
 
         print_notification([f"{k.rjust(25)}  {v}"

@@ -12,8 +12,15 @@ error on a held-out batch before and after.
 
 The flags and defaults are the JAX tool's, plus ``--textures`` (paths or
 globs of image or ``.npy`` texture files; by default the JAX package's
-texture glob). It runs on the card; ``main(argv, device="cpu")`` runs it on
-the CPU.
+texture glob) and ``--num_devices``. It runs on the card;
+``main(argv, device="cpu")`` runs it on the CPU.
+
+Data-parallel over N cards of a node (``--batch_size`` stays the global
+batch; each rank's loader makes its rows, rank 0 writes the files and the
+report, and a warm start takes rank 0's weights):
+
+  torchrun --nproc_per_node N -m cotr_tpu_torch.tools.train_synthetic \
+      --num_devices N ...
 """
 
 from __future__ import annotations
@@ -94,6 +101,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--valid_iter", type=int, default=0,
                     help="validation/checkpoint cadence (0 = steps//10, at "
                          "least 50)")
+    ap.add_argument("--num_devices", type=int, default=None,
+                    help="data-parallel ranks (torchrun --nproc_per_node); "
+                         "must be the world size")
     return ap.parse_args(argv)
 
 
@@ -139,6 +149,7 @@ def build_trainer(args: argparse.Namespace, train_ds, val_ds,
     from cotr_tpu_torch.data.loader import PrefetchLoader
     from cotr_tpu_torch.models.checkpoint_io import load_params
     from cotr_tpu_torch.models.cotr import build_model
+    from cotr_tpu_torch.parallel.mesh import process_shard, replicate
     from cotr_tpu_torch.training.trainer import Trainer
 
     model_cfg = COTRConfig(dtype=args.dtype, enc_layers=args.enc_layers,
@@ -152,21 +163,32 @@ def build_trainer(args: argparse.Namespace, train_ds, val_ds,
                             batch_size=args.batch_size, max_iter=args.steps,
                             valid_iter=(args.valid_iter
                                         or max(args.steps // 10, 50)),
-                            num_kp=args.num_kp, out_dir=args.out,
-                            suffix="synthetic")
+                            num_kp=args.num_kp, num_devices=args.num_devices,
+                            out_dir=args.out, suffix="synthetic")
+    shard = process_shard()
     trainer = Trainer(
         build_model(model_cfg), model_cfg, train_cfg,
         train_loader=PrefetchLoader(train_ds, args.batch_size,
-                                    num_workers=args.workers, seed=1),
+                                    num_workers=args.workers, seed=1,
+                                    shard=shard),
         val_loader=PrefetchLoader(val_ds, args.batch_size, shuffle=False,
-                                  num_workers=args.workers),
+                                  num_workers=args.workers, shard=shard),
         out_dir=args.out, device=device)
     trainer.initialize(seed=0)
     if args.init_weights:
         trainer.state.model.load_state_dict(
             load_params(args.init_weights, model_cfg), strict=True)
-        print(f"warm-started params from {args.init_weights}")
+        if trainer.mesh is not None:
+            replicate(trainer.state.model, trainer.mesh)
+        _say(f"warm-started params from {args.init_weights}")
     return trainer
+
+
+def _say(msg: str) -> None:
+    from cotr_tpu_torch.parallel.mesh import is_rank_zero
+
+    if is_rank_zero():
+        print(msg)
 
 
 def heldout_sample(val_ds, batch_size: int) -> Dict[str, np.ndarray]:
@@ -199,28 +221,37 @@ def train_and_report(args: argparse.Namespace, trainer,
     """Held-out error, training (resumed with ``--resume``), held-out error
     again, and the ``final`` checkpoint."""
     e0 = heldout_error(trainer.state.model, sample)
-    print(f"held-out corr error BEFORE: mean {e0[0]:.1f}px "
-          f"median {e0[1]:.1f}px")
+    _say(f"held-out corr error BEFORE: mean {e0[0]:.1f}px "
+         f"median {e0[1]:.1f}px")
     t0 = time.time()
     trainer.train(resume=args.resume)
     seconds = time.time() - t0
-    print(f"trained {args.steps} steps in {seconds:.0f}s")
+    _say(f"trained {args.steps} steps in {seconds:.0f}s")
     e1 = heldout_error(trainer.state.model, sample)
-    print(f"held-out corr error AFTER:  mean {e1[0]:.1f}px "
-          f"median {e1[1]:.1f}px")
+    _say(f"held-out corr error AFTER:  mean {e1[0]:.1f}px "
+         f"median {e1[1]:.1f}px")
     trainer.save_checkpoint("final")
     path = trainer._path("final")
-    print(f"checkpoint: {path}")
+    _say(f"checkpoint: {path}")
     return dict(before_px=e0, after_px=e1, train_s=seconds,
                 step=trainer.state.step, checkpoint=path)
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> dict:
+    """Train and report; under ``torchrun`` each rank joins the process
+    group first and leaves it at the end."""
+    from cotr_tpu_torch.parallel.mesh import init_distributed
+
     args = parse_args(argv)
-    train_ds, val_ds = build_datasets(args)
-    trainer = build_trainer(args, train_ds, val_ds, device=device)
-    sample = heldout_sample(val_ds, args.batch_size)
-    return train_and_report(args, trainer, sample)
+    started = init_distributed(device)
+    try:
+        train_ds, val_ds = build_datasets(args)
+        trainer = build_trainer(args, train_ds, val_ds, device=device)
+        sample = heldout_sample(val_ds, args.batch_size)
+        return train_and_report(args, trainer, sample)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

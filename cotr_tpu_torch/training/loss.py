@@ -16,7 +16,7 @@ keep masks from ``generator``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -44,21 +44,28 @@ def cotr_loss(model, canvas: torch.Tensor, queries: torch.Tensor,
               targets: torch.Tensor, *, cycle_consis: bool = True,
               bidirectional: bool = True,
               generator: Optional[torch.Generator] = None,
-              weights: Optional[torch.Tensor] = None
+              weights: Optional[torch.Tensor] = None,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (loss, metrics).
 
     ``weights`` (B, Q), optional per-query validity: a pick of weight 0
-    counts in neither term and both terms normalize by the weight sum."""
+    counts in neither term and both terms normalize by the weight sum.
+
+    ``reduce``, under data parallelism: a function that sums a small tensor
+    over the ranks of the data group (outside autograd). The terms are then
+    normalized by the GLOBAL counts (the elements, the weight sum, the
+    cycle-consistent picks), so the returned loss is this rank's share of
+    the global batch's loss: the sum over the ranks of the losses, and of
+    their gradients, is the one-process step's. The metrics ``loss``,
+    ``corr_loss`` and ``cycle_loss`` are the global values; ``pred`` and
+    ``target`` stay this rank's."""
     pred = model(canvas, queries, generator=generator)
-    if weights is None:
-        corr_loss = ((pred - targets) ** 2).mean()
-    else:
+    err_sq = (pred - targets) ** 2
+    if weights is not None:
         w = weights.to(pred.dtype)[..., None]
-        corr_loss = ((pred - targets) ** 2 * w).sum() / \
-            (w.sum() * pred.shape[-1]).clamp(min=1.0)
-    loss = corr_loss
-    cycle_loss = pred.new_zeros(())
+        corr_num, corr_count = (err_sq * w).sum(), w.sum() * pred.shape[-1]
+    cycle_sq = mask = None
     if cycle_consis:
         if bidirectional:
             cycle = model(canvas, pred, generator=generator)
@@ -70,8 +77,42 @@ def cotr_loss(model, canvas: torch.Tensor, queries: torch.Tensor,
         mask = torch.linalg.norm(cycle - queries, dim=-1) < CYCLE_THRESH
         if weights is not None:
             mask = mask & (weights > 0)
-        cycle_loss = masked_mse((cycle - queries) ** 2, mask)
-        loss = loss + cycle_loss
-    metrics = {"loss": loss, "corr_loss": corr_loss,
-               "cycle_loss": cycle_loss, "pred": pred, "target": targets}
+        cycle_sq = (cycle - queries) ** 2
+
+    if reduce is None:
+        corr_loss = err_sq.mean() if weights is None else \
+            corr_num / corr_count.clamp(min=1.0)
+        cycle_loss = pred.new_zeros(()) if cycle_sq is None else \
+            masked_mse(cycle_sq, mask)
+        loss = corr_loss if cycle_sq is None else corr_loss + cycle_loss
+        metrics = {"loss": loss, "corr_loss": corr_loss,
+                   "cycle_loss": cycle_loss}
+    else:
+        if weights is None:
+            corr_count = pred.new_full((), err_sq.numel())
+        counts = [corr_count.detach()]
+        if cycle_sq is not None:
+            mask_f = mask.to(cycle_sq.dtype)[..., None]
+            cycle_num = (cycle_sq * mask_f).sum()
+            counts.append(mask_f.sum() * cycle_sq.shape[-1])
+        totals = reduce(torch.stack(counts))
+        if weights is None:
+            # the local mean times the local share of the elements: with
+            # one rank the factor is exactly 1, the one-process step's
+            corr_loss = err_sq.mean() * (corr_count / totals[0])
+        else:
+            corr_loss = corr_num / totals[0].clamp(min=1.0)
+        if cycle_sq is None:
+            cycle_loss = pred.new_zeros(())
+            loss = corr_loss
+        else:
+            cycle_loss = torch.where(totals[1] > 0,
+                                     cycle_num / totals[1].clamp(min=1.0),
+                                     0.0)
+            loss = corr_loss + cycle_loss
+        parts = reduce(torch.stack([loss.detach(), corr_loss.detach(),
+                                    cycle_loss.detach()]))
+        metrics = {"loss": parts[0], "corr_loss": parts[1],
+                   "cycle_loss": parts[2]}
+    metrics.update(pred=pred, target=targets)
     return loss, metrics

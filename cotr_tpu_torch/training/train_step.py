@@ -1,12 +1,19 @@
 """The train and evaluation steps (counterpart of
-cotr_tpu/training/train_step.py): forward + cycle forward + backward + Adam
-on one device.
+cotr_tpu/training/train_step.py): forward + cycle forward + backward + Adam,
+on one device or over a process mesh (``parallel.mesh``).
 
 Where the JAX step is a pure function of (state, batch, dropout key), this
 one updates the model and the optimizer in place and returns the state with
 its step counted up; the dropout masks come from a ``torch.Generator`` on the
 model's device, and the same generator state gives the same step. Nothing in
 a step reads a value back on the host.
+
+On a mesh each rank holds its rows of the global batch. The loss is
+normalized by the global counts (``training.loss.cotr_loss``'s ``reduce``),
+so the gradients are SUMMED over the data axis, through one flat buffer:
+each rank's parameter part with the ranks that hold the same part. With a
+``"model"`` axis the transformer is split as ``parallel.tp`` says; with
+``zero1_axis`` the optimizer's moments as ``parallel.opt_shard`` says.
 """
 
 from __future__ import annotations
@@ -14,12 +21,16 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cotr_tpu_torch.config import TrainConfig
 from cotr_tpu_torch.data.device_synth import synth_supervision_batch
 from cotr_tpu_torch.models.cotr import COTRModel, init_weights
 from cotr_tpu_torch.ops.canvas import (canvas_from_crops_and_homographies,
                                        normalize_canvas)
+from cotr_tpu_torch.parallel.mesh import (ProcessMesh, all_reduce_sum,
+                                          replicate, require_process_mesh)
+from cotr_tpu_torch.parallel.tp import shard_model
 from cotr_tpu_torch.training.loss import cotr_loss
 from cotr_tpu_torch.training.optim import Optimizer, build_optimizer
 from cotr_tpu_torch.utils.device import resolve_device
@@ -75,18 +86,52 @@ def batch_views(batch: Dict[str, torch.Tensor], cfg: TrainConfig,
 
 def create_train_state(model: COTRModel, cfg: TrainConfig,
                        generator: Optional[torch.Generator] = None,
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh: Optional[ProcessMesh] = None,
+                       zero1_axis: Optional[str] = None) -> TrainState:
     """Step 0: ``model`` on ``device`` with its optimizer. With a (CPU)
     ``generator`` the weights are drawn afresh from it; without one the
-    model keeps the weights it holds (a warm start)."""
-    dev = resolve_device(device)
+    model keeps the weights it holds (a warm start).
+
+    On a process ``mesh`` the model goes to the rank's device and takes
+    global rank 0's weights, then its transformer is split over the mesh's
+    ``"model"`` axis if it has one; ``zero1_axis`` splits the replicated
+    parameters' moments."""
     if generator is not None:
         init_weights(model, generator)
-    model.to(dev)
-    return TrainState(0, model, build_optimizer(cfg, model))
+    if mesh is None:
+        model.to(resolve_device(device))
+        return TrainState(0, model, build_optimizer(cfg, model))
+    mesh = require_process_mesh(mesh, "create_train_state")
+    replicate(model, mesh)
+    layouts = shard_model(model, mesh)
+    return TrainState(0, model, build_optimizer(cfg, model, mesh, layouts,
+                                                zero1_axis))
 
 
-def make_train_step(cfg: TrainConfig) -> Callable:
+def _reduce_over(mesh: ProcessMesh, axis: str = "data"):
+    group = mesh.group(axis)
+    return lambda t: all_reduce_sum(t, group)
+
+
+@torch.no_grad()
+def reduce_gradients(params, mesh: ProcessMesh, axis: str = "data") -> None:
+    """Sum every trainable parameter's ``.grad`` over ``axis``, through one
+    flat buffer (each rank's gradients are of its share of the loss)."""
+    params = [p for p in params if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=mesh.group(axis))
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
+
+
+def make_train_step(cfg: TrainConfig,
+                    mesh: Optional[ProcessMesh] = None) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
     batch: tensors on the model's device, {'image': (B, 256, 512, 3),
@@ -94,7 +139,15 @@ def make_train_step(cfg: TrainConfig) -> Callable:
     :func:`batch_canvas` or the candidate layout of :func:`batch_views`
     (whose scores come from ``generator`` before the dropout masks do).
     metrics: ``loss``, ``corr_loss``, ``cycle_loss``
-    (device scalars), ``pred`` and ``target``, all detached."""
+    (device scalars), ``pred`` and ``target``, all detached.
+
+    With a process ``mesh``: B is this rank's rows; the metrics' losses are
+    the global batch's, ``pred`` and ``target`` this rank's. Each rank draws
+    its masks from its own ``generator`` (seeded apart on the data axis)."""
+    reduce = None
+    if mesh is not None:
+        mesh = require_process_mesh(mesh, "make_train_step")
+        reduce = _reduce_over(mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
@@ -106,8 +159,10 @@ def make_train_step(cfg: TrainConfig) -> Callable:
         loss, metrics = cotr_loss(
             model, canvas, queries, targets, cycle_consis=cfg.cycle_consis,
             bidirectional=cfg.bidirectional, generator=generator,
-            weights=weights)
+            weights=weights, reduce=reduce)
         loss.backward()
+        if mesh is not None:
+            reduce_gradients(model.parameters(), mesh)
         optimizer.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(state.step + 1, model, optimizer), metrics
@@ -115,11 +170,18 @@ def make_train_step(cfg: TrainConfig) -> Callable:
     return train_step
 
 
-def make_eval_step(cfg: TrainConfig) -> Callable:
+def make_eval_step(cfg: TrainConfig,
+                   mesh: Optional[ProcessMesh] = None) -> Callable:
     """Returns eval_step(model, batch) -> {'val_loss', 'pred'}: one
     deterministic forward without a gradient, so its attention goes through
     the hand-written kernels on the card. A candidate-layout batch draws
-    its selection scores from a generator seeded 0 at every call."""
+    its selection scores from a generator seeded 0 at every call.
+
+    With a process ``mesh``: ``val_loss`` is the global batch's, normalized
+    as the training loss is; ``pred`` this rank's rows."""
+    reduce = None
+    if mesh is not None:
+        reduce = _reduce_over(require_process_mesh(mesh, "make_eval_step"))
 
     @torch.no_grad()
     def eval_step(model: COTRModel, batch: Dict[str, torch.Tensor]):
@@ -130,12 +192,16 @@ def make_eval_step(cfg: TrainConfig) -> Callable:
                 device=batch["cand"].device).manual_seed(0)
         canvas, queries, targets, weights = batch_views(batch, cfg, **kw)
         pred = model(canvas, queries)
+        err_sq = (pred - targets) ** 2
         if weights is None:
-            val = ((pred - targets) ** 2).mean()
+            if reduce is None:
+                return {"val_loss": err_sq.mean(), "pred": pred}
+            num, count = err_sq.sum(), pred.new_full((), err_sq.numel())
         else:
             w = weights.to(pred.dtype)[..., None]
-            val = ((pred - targets) ** 2 * w).sum() / \
-                (w.sum() * pred.shape[-1]).clamp(min=1.0)
-        return {"val_loss": val, "pred": pred}
+            num, count = (err_sq * w).sum(), w.sum() * pred.shape[-1]
+        if reduce is not None:
+            num, count = reduce(torch.stack([num, count]))
+        return {"val_loss": num / count.clamp(min=1.0), "pred": pred}
 
     return eval_step

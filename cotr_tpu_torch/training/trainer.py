@@ -13,6 +13,14 @@ cotr_tpu/training/trainer.py).
 
 Checkpoints are ``torch.save`` files of ``{version, step, params,
 opt_state}``, all tensors on the CPU.
+
+Inside an initialized ``torch.distributed`` process group (``torchrun``)
+the trainer is data-parallel over every rank (``parallel.mesh``): each rank
+takes its rows of every global batch (or the rows a sharded loader made for
+it), draws its dropout masks from a generator seeded apart, and validates
+with the loss's global normalization; only rank 0 writes checkpoints,
+``params.json`` and TensorBoard files. A checkpoint holds the full weights
+and moments, so a run resumes at another world size.
 """
 
 from __future__ import annotations
@@ -23,10 +31,12 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cotr_tpu_torch.config import (COTRConfig, TrainConfig, compact_name,
                                    save_params_json)
 from cotr_tpu_torch.models.cotr import COTRModel
+from cotr_tpu_torch.parallel.mesh import data_rows, is_rank_zero, make_mesh
 from cotr_tpu_torch.training.train_step import (TrainState, batch_canvas,
                                                 create_train_state,
                                                 make_eval_step,
@@ -80,21 +90,45 @@ class Trainer:
                  train_loader: Callable[[], Iterable[Dict[str, np.ndarray]]],
                  val_loader: Optional[Callable[[], Iterable]] = None,
                  out_dir: Optional[str] = None, use_tensorboard: bool = True,
-                 device="cuda"):
+                 device="cuda", zero1_axis: Optional[str] = None):
+        """``device``: the card (``cuda:LOCAL_RANK`` in a process group)
+        unless the caller asks for the CPU. ``train_cfg.num_devices``, if
+        given, must be the world size (1 without a process group) and divide
+        the batch. ``zero1_axis="data"`` splits the moments of the
+        parameters over the ranks (ZeRO-1)."""
         self.model = model
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
+        self.zero1_axis = zero1_axis
+        self.mesh = make_mesh(train_cfg.num_devices) \
+            if dist.is_initialized() else None
+        world = 1 if self.mesh is None else self.mesh.size
+        if train_cfg.num_devices not in (None, world):
+            raise ValueError(f"num_devices={train_cfg.num_devices}, but "
+                             f"{world} rank(s) run: start them with torchrun "
+                             "--nproc_per_node N")
+        if train_cfg.batch_size % world:
+            raise ValueError(f"batch_size={train_cfg.batch_size} does not "
+                             f"split over {world} ranks")
         self.device = resolve_device(device)
+        if self.mesh is not None:
+            if self.mesh.device.type != self.device.type:
+                raise ValueError(f"device {device!r}, but the process "
+                                 f"group runs on {self.mesh.device.type}")
+            self.device = self.mesh.device
+        #: whether this process writes the run's files
+        self.is_main = is_rank_zero()
         self.out_dir = out_dir or os.path.join(
             train_cfg.out_dir, compact_name(model_cfg, train_cfg))
         os.makedirs(self.out_dir, exist_ok=True)
-        save_params_json(os.path.join(self.out_dir, "params.json"),
-                         model_cfg, train_cfg)
+        if self.is_main:
+            save_params_json(os.path.join(self.out_dir, "params.json"),
+                             model_cfg, train_cfg)
 
         self._tb = None
-        if use_tensorboard:
+        if use_tensorboard and self.is_main:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -117,13 +151,25 @@ class Trainer:
         generator = None if seed is None else \
             torch.Generator().manual_seed(seed)
         self.state = create_train_state(self.model, self.cfg, generator,
-                                        self.device)
-        self._train_step = make_train_step(self.cfg)
-        self._eval_step = make_eval_step(self.cfg)
+                                        self.device, self.mesh,
+                                        self.zero1_axis)
+        self._train_step = make_train_step(self.cfg, self.mesh)
+        self._eval_step = make_eval_step(self.cfg, self.mesh)
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: upload(batch[k], self.device)
-                for k in KEEP_KEYS if k in batch}
+        """This rank's rows of a batch, on its device: the rows of a global
+        batch (``batch_size`` rows), or a batch that a sharded loader made
+        for this rank alone (``batch_size / world`` rows)."""
+        batch = {k: batch[k] for k in KEEP_KEYS if k in batch}
+        if self.mesh is not None:
+            rows = len(next(iter(batch.values())))
+            if rows == self.cfg.batch_size:
+                batch = {k: data_rows(v, self.mesh) for k, v in batch.items()}
+            elif rows * self.mesh.size != self.cfg.batch_size:
+                raise ValueError(f"a batch of {rows} rows is neither the "
+                                 f"global batch ({self.cfg.batch_size}) nor "
+                                 "one rank's share")
+        return {k: upload(v, self.device) for k, v in batch.items()}
 
     # ----------------------------------------------------------- checkpoints
 
@@ -131,12 +177,15 @@ class Trainer:
         return os.path.join(self._ckpt_dir, f"{tag}.pt")
 
     def save_checkpoint(self, tag: str = "checkpoint"):
+        """Every rank calls it (the moments are gathered); rank 0 writes."""
         payload = {
             "version": self.CKPT_VERSION,
             "step": self.state.step,
             "params": _to_cpu(self.state.model.state_dict()),
             "opt_state": _to_cpu(self.state.optimizer.state_dict()),
         }
+        if not self.is_main:
+            return
         tmp = self._path(tag) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(tag))
@@ -198,6 +247,9 @@ class Trainer:
         if resume:
             self.load_checkpoint()
         generator = torch.Generator(device=self.device)
+        # each data rank draws its own masks; rank 0 those of one process
+        rank_seed = 0 if self.mesh is None else \
+            self.mesh.coordinate("data") << 40
         step = self.state.step
         t0 = time.time()
         while step < self.cfg.max_iter:
@@ -206,7 +258,8 @@ class Trainer:
                     break
                 # seeded from (seed, step): a resumed run draws the masks an
                 # unbroken one would
-                generator.manual_seed((self.cfg.seed + 1) * 1_000_003 + step)
+                generator.manual_seed((self.cfg.seed + 1) * 1_000_003 + step
+                                      + rank_seed)
                 self.state, metrics = self._train_step(
                     self.state, self._batch(batch), generator)
                 step += 1
@@ -228,6 +281,8 @@ class Trainer:
                     if step % (10 * self.cfg.valid_iter) == 0:
                         self.save_checkpoint(f"ckpt_{step}")
                     dt = time.time() - t0
-                    print(f"iter {step}: loss={float(metrics['loss']):.5f} "
-                          f"val={val:.5f} ({dt:.0f}s)")
+                    if self.is_main:
+                        print(f"iter {step}: "
+                              f"loss={float(metrics['loss']):.5f} "
+                              f"val={val:.5f} ({dt:.0f}s)")
         return self.state

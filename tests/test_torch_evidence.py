@@ -16,7 +16,6 @@ Each prints its numbers; PERF.md records them.
 """
 
 import dataclasses
-import math
 import os
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 import chip_smoke
 
 from tests.test_torch_common import few_torch_threads  # noqa: F401
+from tests.test_torch_dist_common import float64_patches
 
 pytestmark = pytest.mark.slow
 
@@ -90,36 +90,6 @@ def test_squad_engines_of_both_packages_agree_at_full_width():
     assert np.median(diff) <= chip_smoke.SAME_MEDIAN_PX
 
 
-def _float64_patches(monkeypatch):
-    """The three places where the model computes in float32 whatever its
-    dtype (the head, layer norm, the softmax) compute in the input's dtype
-    instead, so a float64 model is float64 throughout but for its input
-    embeddings."""
-    import torch.nn.functional as F
-
-    from cotr_tpu_torch.models import cotr, layers, transformer
-    from cotr_tpu_torch.ops.attention import _check
-
-    def head(self, x):
-        return self.fc2(F.relu(self.fc1(F.relu(self.fc0(x)))))
-
-    def layer_norm(self, x):
-        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
-
-    def attention(q, k, v, key_padding_mask=None, dropout_p=0.0,
-                  training=False, generator=None):
-        _check(q, k, v)
-        assert key_padding_mask is None and dropout_p == 0.0
-        logits = torch.einsum("bqhd,bkhd->bhqk",
-                              q / math.sqrt(q.shape[-1]), k)
-        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
-
-    monkeypatch.setattr(cotr.CorrHead, "forward", head)
-    monkeypatch.setattr(layers.LayerNorm, "forward", layer_norm)
-    monkeypatch.setattr(transformer, "einsum_attention", attention)
-
-
 def _loss_and_grads(dtype, monkeypatch):
     from cotr_tpu_torch.config import COTRConfig, TrainConfig
     from cotr_tpu_torch.models.checkpoint_io import load_model
@@ -133,7 +103,7 @@ def _loss_and_grads(dtype, monkeypatch):
     model = load_model(FLAGSHIP, cfg, device="cpu").train()
     with monkeypatch.context() as patch:
         if dtype == torch.float64:
-            _float64_patches(patch)
+            float64_patches(patch.setattr)
             model = model.double()
             model.dtype = torch.float64
         views = train_step.batch_views(

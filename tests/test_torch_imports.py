@@ -138,6 +138,22 @@ for name in sys.argv[1].split(","):
         ds = MegadepthDataset(mod.data_config(config), "val")
         q, nn = ds.get_query_with_knn(0)
         assert mod.prepare_pair(q, nn[0], 4)[0].shape == (48, 64, 3)
+    if name == "cotr_tpu_torch.parallel.opt_shard":
+        import torch
+        from cotr_tpu_torch.parallel import tp
+        from cotr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+        from cotr_tpu_torch.config import COTRConfig
+        from cotr_tpu_torch.models.cotr import build_model
+        model = build_model(COTRConfig(enc_layers=1, dec_layers=1))
+        layouts = tp.transformer_param_shardings(model)
+        moments = mod.opt_state_shardings(dict(model.named_parameters()),
+                                          layouts, {"data": 2, "model": 2},
+                                          "data")
+        assert {lay.axis for lay in moments.values()} == {"model", "data"}
+        mesh = make_mesh(devices=["cpu"] * 2)
+        assert len(shard_batch(torch.zeros(4, 1), mesh)) == 2
+    if name == "cotr_tpu_torch.tools.dryrun_multichip":
+        assert mod.uses_tp(4) and not mod.uses_tp(2)
     if name == "cotr_tpu_torch.models.torch_convert":
         assert mod._reference_key("transformer.dec0.cross_attn.k_proj.bias") == (
             "transformer.decoder.layers.0.multihead_attn.in_proj_bias", 1)
@@ -224,6 +240,23 @@ def test_megadepth_modules_import_and_run_with_jax_and_image_libs_blocked():
     proc = _run_blocked(",".join(_MEGADEPTH_MODULES), "--no-image-libs")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for module in _MEGADEPTH_MODULES:
+        assert f"imported {module}" in proc.stdout
+
+
+#: the parallelism slice and its two tools, blocked the same way; a local
+#: mesh splits a batch and the layouts of a 1 + 1 model are computed
+_PARALLEL_MODULES = ["cotr_tpu_torch.parallel",
+                     "cotr_tpu_torch.parallel.mesh",
+                     "cotr_tpu_torch.parallel.tp",
+                     "cotr_tpu_torch.parallel.opt_shard",
+                     "cotr_tpu_torch.tools.bench_sharded",
+                     "cotr_tpu_torch.tools.dryrun_multichip"]
+
+
+def test_parallel_modules_import_and_run_with_jax_and_cotr_tpu_blocked():
+    proc = _run_blocked(",".join(_PARALLEL_MODULES), "--no-pil")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for module in _PARALLEL_MODULES:
         assert f"imported {module}" in proc.stdout
 
 

@@ -161,3 +161,39 @@ def test_synthetic_batches_equal_the_jax_loader(tmp_path):
         assert set(g) == set(w)
         for k in w:
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_rank_rows_stack_to_the_one_process_batch(tmp_path):
+    """Under data parallelism each rank's loader yields only its rows of
+    every global batch; a synthetic sample depends on (seed, index) alone,
+    so the ranks' rows, stacked, are the one-process batch exactly, epoch
+    after epoch."""
+    from cotr_tpu_torch.data.synthetic import SyntheticHomographyDataset
+
+    path = str(tmp_path / "tex.npy")
+    np.save(path, np.random.RandomState(0).randint(
+        0, 256, (300, 280, 3)).astype(np.uint8))
+    ds = SyntheticHomographyDataset([path], length=12, num_kp=8,
+                                    proc_textures=1, seed=1)
+    whole = PrefetchLoader(ds, batch_size=4, num_workers=2, seed=3)
+    ranks = [PrefetchLoader(ds, batch_size=4, num_workers=2, seed=3,
+                            shard=(r, 2)) for r in range(2)]
+    for _ in range(2):
+        want = list(whole)
+        got = [list(loader) for loader in ranks]
+        assert len(want) == len(got[0]) == len(got[1]) == len(whole) == 3
+        for b, batch in enumerate(want):
+            assert got[0][b]["image"].shape[0] == 2
+            for k, v in batch.items():
+                np.testing.assert_array_equal(
+                    np.concatenate([got[0][b][k], got[1][b][k]]), v)
+
+
+def test_rank_rows_need_a_batch_that_splits():
+    with pytest.raises(ValueError):
+        PrefetchLoader(ToyDataset(10), batch_size=3, shard=(0, 2))
+    with pytest.raises(ValueError):
+        PrefetchLoader(ToyDataset(10), batch_size=4, shard=(2, 2))
+    with pytest.raises(ValueError):
+        list(PrefetchLoader(ToyDataset(9), batch_size=4, drop_last=False,
+                            shuffle=False, shard=(0, 2)))
