@@ -113,7 +113,26 @@ Phases (any failure exits non-zero):
     then, with ``torch.backends.cudnn.deterministic``, 5 steps through the
     data-parallel step from the same state and batch as 5 unsharded steps,
     and the same with ZeRO-1; ms a step for each;
-25. one JSON line describing each kernel, then the device line last.
+25. the last tools, each run whole at its full width with a gate fixed
+    before the first reading: ``[triage-dense]`` (the triage_dense twin:
+    dense_flow at 1024 x 1024 in bfloat16, its trials finite, the median
+    split call's phases summing to its wall within 20% and that wall the
+    trials' median within 20%), ``[triage-multipair]`` (64 pairs of 32
+    queries at seed strides 1 and 4, one trial after the warm call: the
+    cost centres' calls those the job needs, the wrapped dispatch calls
+    equal to the engine's dispatch_count), ``[triage-guided]`` (2,048
+    keypoints each way on the serving phase's 768 x 1024 pair, 3 rounds
+    after the warm one: finite answers, a probe above 0 ms, both
+    correlations defined), after the parallel serving phase;
+    ``[goldens]`` (the golden twin's demos in subprocesses, held by
+    ``compare_to_golden`` to [demos]' pictures), ``[side-by-side]`` and
+    ``[nn-dist]`` (the kNN overlap matrix of [megadepth-data]'s scene on the
+    card against the numpy path on 48 cells, computed beside [goldens];
+    resumed and repeated), after [demos]; ``[bench-loader]`` (500 captures
+    of 240 x 320 in both layouts) and ``[generated-training]`` (the
+    orchestrator's three stages and its held-out eval in subprocesses,
+    stage 1 killed and resumed), after [eval-suite];
+26. one JSON line describing each kernel, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -264,6 +283,53 @@ RESUME_ATOL = 1e-6
 PARALLEL_MESH = ["cuda:0", "cuda:0"]
 PARALLEL_TRAIN_STEPS = 5
 PARALLEL_LOSS_RTOL = 1e-5
+# the last tools, each run whole at its full width. [triage-dense]: the
+# phases of the median split call sum to that call's wall within this
+# share, and that wall is the plain trials' median within it too
+TRIAGE_SPLIT_SHARE = 0.2
+TRIAGE_DENSE_TRIALS = 7
+# cut for the script's time: 1 trial of the multi-pair triage after its
+# warm call (its default is 3), 3 rounds of the guided one (8), the fewest
+# that give its correlations
+TRIAGE_MULTIPAIR_TRIALS = 1
+TRIAGE_GUIDED_ROUNDS = 3
+# [triage-guided]: keypoints of each image, drawn inside this margin (px)
+GUIDED_KEYPOINTS = 2048
+GUIDED_MARGIN = 8
+# [bench-loader]: the JAX tool's scene and loader at its defaults, and the
+# keys of a batch in each layout
+LOADER_ARGV = ["--captures", "500", "--height", "240", "--width", "320",
+               "--batch_size", "24", "--batches", "20", "--workers", "4"]
+LOADER_REPORT_KEYS = {"metric", "captures", "image_hw", "batch_size",
+                      "use_ram", "batches_timed", "batches_per_s",
+                      "samples_per_s", "keys", "device_synth"}
+LOADER_BATCH_KEYS = {
+    False: ["corrs", "image", "queries", "targets"],
+    True: ["c2w_nn", "cand", "flip", "image", "kinv_nn", "proj_q", "qdepth",
+           "qscale", "skey"]}
+# [generated-training]: the orchestrator at full width, cut in iterations
+# only: stage 1 for 4 with a validation every 2 (killed after 2), stages 2
+# and 3 for 2 each
+GENTRAIN_ITERS = {"--stage1_iters": 4, "--stage2_iters": 2,
+                  "--stage3_iters": 2, "--valid_iter": 2}
+# the stages' validation batches (bfloat16), launched in their subprocesses
+GENTRAIN_SHAPES = [(24, 512), (24, 200), (16, 512), (16, 200)]
+# [nn-dist]: the card's matrix against the numpy path on sampled cells:
+# equal on all but NN_INEXACT, all within NN_TOL (about 80 pixels of a
+# 768 x 1024 union); the first invocation of the split run fills NN_SPLIT
+NN_SAMPLED = 48
+NN_INEXACT = 1
+NN_TOL = 1e-4
+NN_SPLIT = 1000
+# the numpy path's processes: half the host's cores, beside [goldens]
+NN_PROCESSES = 4
+# [goldens]: each demo's arguments after "--" (the inputs [demos] wrote in
+# its directory) and the picture [demos] wrote from them
+GOLDEN_INPUTS = {
+    "demo_single_pair": (["--img_a", "pair_a.npy", "--img_b", "pair_b.npy"],
+                         "sparse_output.png"),
+    "demo_wbs": (["--img_a", "wbs_a.npy", "--img_b", "wbs_b.npy", "--pts",
+                  "wbs_pts.txt"], "wbs_output.png")}
 
 
 def log(msg: str) -> None:
@@ -2546,6 +2612,416 @@ def phase_parallel_train(attention, mods, par, batch) -> dict:
         torch.distributed.destroy_process_group()
 
 
+@contextlib.contextmanager
+def replaced(module, name: str, value):
+    """``module.name`` is ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def phase_triage_dense(attention) -> dict:
+    """The triage_dense twin at its defaults: the flagship in bfloat16, two
+    1024 x 1024 images, 7 trials, each followed by a split call. Gates:
+    every trial's output is finite (the twin raises otherwise); the phases
+    of the reported split call sum to that call's wall within
+    TRIAGE_SPLIT_SHARE (no stage of the call goes untimed); and that wall,
+    the split calls' median, is the trials' median within the same share
+    (the split stands for a plain call)."""
+    from cotr_tpu_torch.tools import triage_dense
+
+    with counted(attention, {}) as record:
+        report = triage_dense.main(
+            ["--trials", str(TRIAGE_DENSE_TRIALS), "--side", "1024"],
+            device="cuda")
+    split = report["phase_split_one_call_s"]
+    phase_sum = (split["canvas_build_upload"] + split["device_pass"]
+                 + 2 * (split["field_resize_fetch_per_side"]
+                        + split["merge_per_side"]))
+    share = phase_sum / split["call_wall"]
+    of_median = split["call_wall"] / report["median_s"]
+    record.update(report=report, phase_sum_s=phase_sum, split_share=share,
+                  split_wall_of_median=of_median)
+    log(f"[triage-dense] dense_flow on 1024 x 1024, bfloat16: median "
+        f"{report['median_s']:.3f} s (IQR {report['iqr_s']}), "
+        f"{report['q_s_median']:.0f} queries/s; the median split call "
+        f"{split}: its phases, both sides summed, {phase_sum:.3f} s = "
+        f"{share:.3f} of its wall; its wall {of_median:.3f} of the trials' "
+        f"median")
+    log_counts("triage-dense", record)
+    if abs(share - 1.0) > TRIAGE_SPLIT_SHARE \
+            or abs(of_median - 1.0) > TRIAGE_SPLIT_SHARE:
+        raise AssertionError(f"[triage-dense] the phases sum to {share:.3f} "
+                             f"of their call's wall, which is {of_median:.3f}"
+                             " of the trials' median")
+    return record
+
+
+def phase_triage_multipair(attention, out_dir: str) -> dict:
+    """The triage_multipair twin at its defaults (64 pairs of 32 queries,
+    256 x 256, zooms 0.5 and 0.25, bfloat16) but TRIAGE_MULTIPAIR_TRIALS
+    trials, at seed strides 1 and 4. Gate: the cost centres' calls a trial
+    are those the job must make: one seed pass, two image stacks, a squad
+    formation for each pair at each zoom level, and at each level one
+    dispatch for each group_cap squads of all pairs (the squads counted as
+    they are formed); the wrapped dispatch calls over the warm call and the
+    trials equal the engine's own dispatch_count."""
+    from cotr_tpu_torch.inference import grouped
+    from cotr_tpu_torch.tools import triage_multipair
+
+    pairs, levels = 64, 2
+    runs = {}
+    for stride in (1, 4):
+        engines, squads = [], []
+
+        def recording(args, device, build=triage_multipair.build_engine):
+            engines.append(build(args, device))
+            return engines[-1]
+
+        def forming(*a, form=grouped.form_squads, **kw):
+            squad_of, pilots = form(*a, **kw)
+            squads.append(len(pilots))
+            return squad_of, pilots
+
+        with replaced(triage_multipair, "build_engine", recording), \
+                replaced(grouped, "form_squads", forming), \
+                counted(attention, {}) as record:
+            report = triage_multipair.main(
+                ["--ckpt", FLAGSHIP, "--trials",
+                 str(TRIAGE_MULTIPAIR_TRIALS), "--seed_stride", str(stride),
+                 "--out", os.path.join(out_dir, f"multipair_{stride}.json")],
+                device="cuda")
+        calls = report["calls_per_trial"]
+        dispatches = engines[0]._stepper.dispatch_count
+        jobs = TRIAGE_MULTIPAIR_TRIALS + 1
+        # squads by (job, level), formed level-major, every pair each level
+        per_level = np.asarray(squads).reshape(-1, pairs).sum(axis=1)
+        group_cap = engines[0].group_cap
+        want_dispatches = [int(-(-g // group_cap)) for g in per_level]
+        want = {"dense_seed_s_calls": 1, "image_stack_upload_s_calls": 2,
+                "squad_formation_s_calls": pairs * levels,
+                "dispatch_enqueue_s_calls": sum(want_dispatches[levels:])
+                // TRIAGE_MULTIPAIR_TRIALS}
+        record.update(report=report, engine_dispatch_count=dispatches,
+                      squads_per_level=per_level.tolist(),
+                      expected_calls=want)
+        log(f"[triage-multipair] seed_stride {stride}: median wall "
+            f"{report['wall_s_median']:.3f} s ({report['q_s']:.0f} "
+            f"queries/s); cost centres a trial "
+            f"{report['cost_centers_s_per_trial']}, calls {calls} (the job "
+            f"needs {want}: squads per level {per_level.tolist()} over "
+            f"{jobs} calls, {group_cap} a dispatch), unaccounted "
+            f"{report['unaccounted_s']:.3f} s (the device's compute: "
+            f"dispatch_enqueue is enqueue time only); the engine's "
+            f"dispatch_count {dispatches} over {TRIAGE_MULTIPAIR_TRIALS} + "
+            f"1 calls")
+        log_counts("triage-multipair", record)
+        if len(squads) != jobs * pairs * levels or calls != want \
+                or dispatches != sum(want_dispatches) \
+                or dispatches != jobs * calls["dispatch_enqueue_s_calls"]:
+            raise AssertionError(f"[triage-multipair] stride {stride}: "
+                                 f"calls {calls}, the job's {want}, "
+                                 f"{len(squads)} squad formations, the "
+                                 f"engine's dispatch_count {dispatches}")
+        runs[f"seed_stride {stride}"] = record
+    return runs
+
+
+def phase_triage_guided(attention, pair, out_dir: str) -> dict:
+    """The triage_guided twin on the serving phase's 768 x 1024 pair (B a
+    known homography of A), 2,048 keypoints of each image drawn from a seed
+    inside an 8 px margin, the flagship in bfloat16, zooms
+    linspace(0.5, 0.0625, 4), TRIAGE_GUIDED_ROUNDS rounds. Gate: every
+    answer finite (the twin raises otherwise), the probe's ms above 0, and
+    both correlations of the probe with the walls defined and finite."""
+    from cotr_tpu_torch.tools import triage_guided
+
+    rng = np.random.RandomState(31)
+    paths = {}
+    for key, array in [("img_a", pair[0]), ("img_b", pair[1])] + [
+            (f"kpts_{side}", np.stack([
+                rng.uniform(GUIDED_MARGIN, pair[i].shape[1] - GUIDED_MARGIN,
+                            GUIDED_KEYPOINTS),
+                rng.uniform(GUIDED_MARGIN, pair[i].shape[0] - GUIDED_MARGIN,
+                            GUIDED_KEYPOINTS)], 1).astype(np.float32))
+            for i, side in enumerate("ab")]:
+        paths[key] = os.path.join(out_dir, f"guided_{key}.npy")
+        np.save(paths[key], array)
+    argv = ["--rounds", str(TRIAGE_GUIDED_ROUNDS), "--ckpt", FLAGSHIP,
+            "--out", os.path.join(out_dir, "guided.json")]
+    for key, path in paths.items():
+        argv += [f"--{key}", path]
+    with counted(attention, {}) as record:
+        summary = triage_guided.main(argv, device="cuda")
+    record.update(summary=summary)
+    log(f"[triage-guided] {TRIAGE_GUIDED_ROUNDS} rounds: probe "
+        f"{summary['probe_ms']} ms; multi-pair wall {summary['multipair']} "
+        f"s; serial {summary['serial']} s; corr(probe, multi-pair) "
+        f"{summary['corr_probe_vs_multipair']}, corr(probe, serial) "
+        f"{summary['corr_probe_vs_serial']}")
+    log_counts("triage-guided", record)
+    correlations = (summary["corr_probe_vs_multipair"],
+                    summary["corr_probe_vs_serial"])
+    if not (summary["probe_ms"]["min"] > 0
+            and summary["multipair"]["speedup_vs_ref_79s"] is None
+            and all(c is not None and np.isfinite(c) for c in correlations)):
+        raise AssertionError(f"[triage-guided] {summary['probe_ms']}, "
+                             f"{summary['multipair']}")
+    return record
+
+
+def phase_bench_loader(out_dir: str) -> dict:
+    """The bench_loader twin at the JAX tool's defaults (500 captures of
+    240 x 320, batch 24, 20 batches, 4 workers) in the host layout, then in
+    the device-synth layout on the same scene. Gate: 20 batches timed, the
+    JAX tool's report keys (its TPU step rate aside) and batch keys."""
+    from cotr_tpu_torch.tools import bench_loader
+
+    argv = LOADER_ARGV + ["--root", os.path.join(out_dir, "loader_scene")]
+    runs = {}
+    for device_synth in (False, True):
+        t0 = time.perf_counter()
+        report = bench_loader.main(
+            argv + (["--keep", "--device_synth"] if device_synth else []))
+        wall = time.perf_counter() - t0
+        name = "device_synth" if device_synth else "host"
+        runs[name] = dict(report=report, wall_s=wall)
+        log(f"[bench-loader] {name} layout: {report['batches_timed']} "
+            f"batches of {report['batch_size']} at "
+            f"{report['batches_per_s']:.3f} batches/s, "
+            f"{report['samples_per_s']:.1f} samples/s; run wall {wall:.1f} s"
+            + ("" if device_synth else " (the scene's 500 captures "
+               "written in it)"))
+        if not (report["batches_timed"] == 20
+                and set(report) == LOADER_REPORT_KEYS
+                and report["keys"] == LOADER_BATCH_KEYS[device_synth]):
+            raise AssertionError(f"[bench-loader] {name}: {report}")
+    return runs
+
+
+def _processes_with(marker: str) -> list:
+    """Live processes, this one aside, whose environment holds ``marker``."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if marker.encode() not in f.read():
+                    continue
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(") ", 1)[-1][0] != "Z":
+                    found.append(int(pid))
+        except OSError:
+            continue
+    return found
+
+
+def phase_generated_training(out_dir: str) -> dict:
+    """The run_generated_training twin at full width (the flagship warm
+    start, 6 + 6 layers, bfloat16, one train scene of 400 captures and a
+    held-out one of 100, 240 x 320, batches 24 / 16 / 16, the eval on 6
+    pairs of a 24 x 24 grid), cut in iterations only (GENTRAIN_ITERS).
+    Gates: stage 1 resumes after its SIGTERM past the validation step; the
+    held-out EPE is finite; no process of the run outlives it. The stages
+    and the eval run in subprocesses, so their launches are not counted
+    here: the stages' validation shapes (GENTRAIN_SHAPES, bfloat16) are
+    checked in phase_path_shapes, and the eval's are the squad engine's, as
+    in [megadepth-eval]."""
+    from cotr_tpu_torch.tools import run_generated_training
+
+    marker = f"COTR_SMOKE_GENTRAIN={os.getpid()}"
+    key, value = marker.split("=")
+    os.environ[key] = value
+    argv = ["--root", os.path.join(out_dir, "gen_scenes"),
+            "--out", os.path.join(out_dir, "gen_training"),
+            "--init_weights", FLAGSHIP]
+    for flag, n in GENTRAIN_ITERS.items():
+        argv += [flag, str(n)]
+    try:
+        t0 = time.perf_counter()
+        summary = run_generated_training.main(argv, device="cuda")
+        wall = time.perf_counter() - t0
+        orphans = _processes_with(marker)
+    finally:
+        del os.environ[key]
+    stage1 = summary["stages"]["stage1"]
+    proof = stage1["resume_proof"]
+    epe = summary["heldout_eval"]["epe_median"]
+    log(f"[generated-training] {wall:.1f} s: stage 1 killed after iter "
+        f"{proof['preempted_at']}, resumed at iter "
+        f"{proof['resumed_first_val']}; losses (iter, train, val): stage 1 "
+        f"{stage1['iters_leg_a'] + stage1['iters_leg_b']}, stage 2 "
+        f"{summary['stages']['stage2']['iters']}, stage 3 "
+        f"{summary['stages']['stage3']['iters']}; held-out median EPE "
+        f"{epe:.2f} px ({summary['heldout_eval'].get('pairs')} pairs); "
+        f"processes left: {orphans}. The stages and the eval ran in "
+        f"subprocesses: their launches are not counted here (validation "
+        f"shapes {GENTRAIN_SHAPES} in bfloat16 are checked with the path "
+        f"shapes; the eval's are the squad engine's, as in "
+        f"[megadepth-eval])")
+    if not (proof["resumed_first_val"] > proof["preempted_at"]
+            >= GENTRAIN_ITERS["--valid_iter"] and np.isfinite(epe)
+            and not orphans):
+        raise AssertionError(f"[generated-training] resume {proof}, EPE "
+                             f"{epe}, processes left {orphans}")
+    return dict(summary=summary, wall_s=wall)
+
+
+def start_nn_numpy(config: str) -> dict:
+    """[nn-dist]'s reference: the numpy path on NN_SAMPLED cells of
+    [megadepth-data]'s scene, drawn from a seed, in a spawned process pool
+    started in the background (it overlaps [goldens], which waits on its
+    subprocesses). Returns what phase_nn_dist needs."""
+    from cotr_tpu_torch.tools import prepare_nn_distance_mat as nn_dist
+
+    with open(config) as f:
+        raw = json.load(f)
+    sdd = raw["scenes_name_list"][0]
+    scene_args = (sdd["scene_dir"], sdd["image_dir"], sdd["depth_dir"],
+                  raw["valid_list_json"], "no_crop")
+    n = len(nn_dist.read_scene(scene_args).captures)
+    cells = [(i, j) for i in range(n) for j in range(n) if i != j]
+    rng = np.random.RandomState(17)
+    sampled = [cells[k] for k in rng.choice(len(cells), NN_SAMPLED,
+                                            replace=False)]
+
+    def run():
+        t0 = time.perf_counter()
+        out = nn_dist.numpy_cells(scene_args, sampled, NN_PROCESSES)
+        return out, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return dict(scene_args=scene_args, n=n, sampled=sampled, future=future)
+
+
+def phase_nn_dist(reference: dict, out_dir: str) -> dict:
+    """The prepare_nn_distance_mat twin on [megadepth-data]'s scene (48
+    views of 768 x 1024): the whole 48 x 48 matrix on the card. Gates: on
+    NN_SAMPLED cells the numpy path (``start_nn_numpy``) agrees exactly but
+    on NN_INEXACT and within NN_TOL on all; two --cells invocations give
+    the matrix one gives; a second run gives it bit for bit."""
+    from cotr_tpu_torch.tools import prepare_nn_distance_mat as nn_dist
+
+    scene_dir, image_dir, depth_dir, valid_list, _ = reference["scene_args"]
+    base = ["--scene_dir", scene_dir, "--image_dir", image_dir,
+            "--depth_dir", depth_dir, "--valid_list", valid_list]
+
+    def run(name, *extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist = nn_dist.main(base + ["--out", os.path.join(
+            out_dir, f"{name}.npy"), *extra], device="cuda")
+        torch.cuda.synchronize()
+        return dist, time.perf_counter() - t0
+
+    whole, wall = run("whole")
+    n = whole.shape[0]
+    run("split", "--cells", str(NN_SPLIT))
+    split, _ = run("split")
+    again, again_wall = run("again")
+    want, numpy_wall = reference["future"].result()
+    sampled = reference["sampled"]
+    dev = [abs(float(whole[c]) - float(np.float32(want[c]))) for c in sampled]
+    exact = sum(d == 0.0 for d in dev)
+    off = whole[~np.eye(n, dtype=bool)]
+    record = dict(views=n, cells=n * (n - 1), wall_s=wall,
+                  second_wall_s=again_wall, numpy_cells=NN_SAMPLED,
+                  numpy_wall_s=numpy_wall, exact=exact,
+                  max_abs_dev=max(dev), split_equal=bool(
+                      split.tobytes() == whole.tobytes()),
+                  repeat_equal=bool(again.tobytes() == whole.tobytes()),
+                  mean_iou=float(off.mean()), max_iou=float(off.max()))
+    log(f"[nn-dist] {n} x {n} matrix of [megadepth-data]'s scene, "
+        f"{record['cells']} cells on the card in {wall:.2f} s (again "
+        f"{again_wall:.2f} s; the reads of {n} depths included); numpy on "
+        f"{NN_SAMPLED} sampled cells in a pool of {NN_PROCESSES}: "
+        f"{numpy_wall:.2f} s (beside [goldens]); equal on {exact} of "
+        f"{NN_SAMPLED}, largest deviation {max(dev):.3e}; --cells "
+        f"{NN_SPLIT} then the rest equal to one run: "
+        f"{record['split_equal']}; a second run bit for bit: "
+        f"{record['repeat_equal']}; off-diagonal IoU mean "
+        f"{record['mean_iou']:.4f}, largest {record['max_iou']:.4f}")
+    if not (exact >= NN_SAMPLED - NN_INEXACT and max(dev) <= NN_TOL
+            and record["split_equal"] and record["repeat_equal"]
+            and whole.min() >= 0 and record["max_iou"] > 0):
+        raise AssertionError(f"[nn-dist] {record}")
+    return record
+
+
+def phase_goldens(demo_dir: str) -> dict:
+    """The make_demo_goldens twin with --only demo_single_pair and
+    --only demo_wbs, each given [demos]' generated inputs after "--"
+    (GOLDEN_INPUTS; the single pair without --densify, which adds nothing
+    to the picture), in float32 as [demos] ran them, the two invocations at
+    once: compare_to_golden passes against the pictures [demos] wrote for
+    the same inputs. The demos run in subprocesses: their launches are
+    [demos]' shapes, counted there."""
+    from cotr_tpu_torch.demos.demo_utils import read_png
+    from cotr_tpu_torch.tools import make_demo_goldens
+
+    golden_dir = os.path.join(demo_dir, "goldens")
+
+    def make(name):
+        t0 = time.perf_counter()
+        (path,) = make_demo_goldens.main(
+            ["--weights", FLAGSHIP, "--dtype", "float32", "--only", name,
+             "--out_dir", golden_dir, "--", *GOLDEN_INPUTS[name][0]],
+            device="cuda")
+        return path, time.perf_counter() - t0
+
+    # the demos resolve their inputs from the directory they start in
+    with contextlib.chdir(demo_dir), \
+            concurrent.futures.ThreadPoolExecutor(len(GOLDEN_INPUTS)) as pool:
+        made = dict(zip(GOLDEN_INPUTS, pool.map(make, GOLDEN_INPUTS)))
+    runs = {}
+    for name, (path, wall) in made.items():
+        demos_png = GOLDEN_INPUTS[name][1]
+        verdict = make_demo_goldens.compare_to_golden(
+            read_png(path), read_png(os.path.join(demo_dir, demos_png)))
+        runs[name] = dict(verdict, wall_s=wall, path=path)
+        log(f"[goldens] {name}: {wall:.1f} s (a subprocess on the card, "
+            f"beside the other); against [demos]' {demos_png}: {verdict}")
+        if not verdict["ok"]:
+            raise AssertionError(f"[goldens] {name}: {verdict}")
+    return runs
+
+
+def phase_side_by_side(demo_dir: str, goldens: dict) -> dict:
+    """The make_side_by_side twin on the goldens and [demos]' pictures in
+    the place of the reference's (the single-pair pair; the others are
+    absent and skipped, as the JAX tool skips them). Gate: the composite's
+    shape as the JAX tool computes it."""
+    from cotr_tpu_torch.demos.demo_utils import read_png
+    from cotr_tpu_torch.tools import make_side_by_side
+
+    ref_dir = os.path.join(demo_dir, "reference")
+    os.makedirs(ref_dir)
+    os.symlink(os.path.join(demo_dir, "sparse_output.png"),
+               os.path.join(ref_dir, "sparse_output.png"))
+    ours = os.path.dirname(goldens["demo_single_pair"]["path"])
+    made = make_side_by_side.main(["--ours", ours, "--ref", ref_dir,
+                                   "--out", os.path.join(demo_dir, "sbs")])
+    (path,) = made
+    got = read_png(path).shape
+    h_ours, w_ours = read_png(os.path.join(ours, "demo_single_pair.png")
+                              ).shape[:2]
+    h_ref, w_ref = read_png(os.path.join(ref_dir, "sparse_output.png")
+                            ).shape[:2]
+    want = (360 + 22, int(round(w_ours * 360 / h_ours)) + 8
+            + int(round(w_ref * 360 / h_ref)), 3)
+    log(f"[side-by-side] {len(made)} composite, {got} (the JAX tool's rule "
+        f"gives {want}); the four pairs without files skipped")
+    if got != want:
+        raise AssertionError(f"[side-by-side] {got} != {want}")
+    return dict(path=path, shape=list(got))
+
+
 def merged_shape_counts(records) -> list:
     total = {}
     for record in records:
@@ -2625,11 +3101,17 @@ def main() -> int:
     par_serve = phase_parallel_serve(attention, par, runner, big_pair)
     del runner
     torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(ROOT, "build")) as triage_dir:
+        triage_dense = phase_triage_dense(attention)
+        triage_multipair = phase_triage_multipair(attention, triage_dir)
+        triage_guided = phase_triage_guided(attention, big_pair, triage_dir)
+    torch.cuda.empty_cache()
     train_parity = phase_train_parity(load_model, COTRConfig(), loss_mod,
                                       train_step_mod, TrainConfig())
     batch = on_card(make_train_batch(np.random.RandomState(7), 24,
                                      TrainConfig().num_kp))
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build")) as out_dir:
         trainer, train = phase_train(attention, mods, batch, out_dir)
@@ -2706,9 +3188,15 @@ def main() -> int:
         demo_dir = os.path.join(md_dir, "demos")
         os.makedirs(demo_dir)
         demos = phase_demos(attention, md, config, demo_dir)
+        nn_reference = start_nn_numpy(config)
+        goldens = phase_goldens(demo_dir)
+        side_by_side = phase_side_by_side(demo_dir, goldens)
+        nn_dist = phase_nn_dist(nn_reference, md_dir)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build")) as suite_dir:
         suite = phase_eval_suite(attention, suite_dir)
+        bench_loader = phase_bench_loader(suite_dir)
+        gen_training = phase_generated_training(suite_dir)
     if file_digest(FLAGSHIP) != flagship_digest:
         raise AssertionError("checkpoints/flagship.npz changed during the "
                              "run")
@@ -2750,10 +3238,24 @@ def main() -> int:
                  par_serve["scan"],
              "bench_sharded twin, N = 2": par_serve["bench"],
              "train steps of [parallel-train], 5 x 5 (the einsum path)":
-                 par_train}
+                 par_train,
+             "triage_dense twin, 1 + 7 dense_flow calls and 7 split calls":
+                 triage_dense,
+             **{f"triage_multipair twin, 64 pairs x 32 queries, {tag}": run
+                for tag, run in triage_multipair.items()},
+             f"triage_guided twin, 1 + {TRIAGE_GUIDED_ROUNDS} rounds":
+                 triage_guided}
     launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
-    rows += phase_path_shapes(attention, shape_counts, rows)
+    # the generated-training stages' validation shapes: launched in their
+    # subprocesses, so checked here without a count
+    counted_keys = {(r["b"], r["lq"], r["s"], r["dtype"])
+                    for r in shape_counts}
+    subprocess_shapes = [dict(b=b, lq=lq, s=512, dtype="bfloat16")
+                         for b, lq in GENTRAIN_SHAPES
+                         if (b, lq, 512, "bfloat16") not in counted_keys]
+    rows += phase_path_shapes(attention, shape_counts + subprocess_shapes,
+                              rows)
 
     main_row = next(r for r in rows if r["shape"] == "dense decode chunk"
                     and r["dtype"] == "float32")
@@ -2784,6 +3286,12 @@ def main() -> int:
                        megadepth_eval=md_eval, convert=convert,
                        demos=demos, eval_suite=suite,
                        parallel_serve=par_serve, parallel_train=par_train,
+                       triage_dense=triage_dense,
+                       triage_multipair=triage_multipair,
+                       triage_guided=triage_guided,
+                       bench_loader=bench_loader,
+                       generated_training=gen_training, nn_dist=nn_dist,
+                       goldens=goldens, side_by_side=side_by_side,
                        kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
@@ -2807,7 +3315,18 @@ def main() -> int:
         f"{par_serve['squad']['unsharded_wall_s']:.2f} s); [parallel-train] "
         f"{par_train['dp']['ms_per_step']:.1f} ms a DP step, "
         f"{par_train['dp + zero1']['ms_per_step']:.1f} ms with ZeRO-1, "
-        f"{par_train['unsharded']['ms_per_step']:.1f} ms unsharded")
+        f"{par_train['unsharded']['ms_per_step']:.1f} ms unsharded; "
+        f"[triage-dense] median {triage_dense['report']['median_s']:.3f} s; "
+        f"[triage-multipair] "
+        + ", ".join(f"{tag} {run['report']['wall_s_median']:.3f} s"
+                    for tag, run in triage_multipair.items())
+        + f"; [triage-guided] multi-pair median "
+        f"{triage_guided['summary']['multipair']['median']:.3f} s; "
+        f"[bench-loader] "
+        + ", ".join(f"{tag} {run['report']['samples_per_s']:.1f} samples/s"
+                    for tag, run in bench_loader.items())
+        + f"; [generated-training] {gen_training['wall_s']:.1f} s; "
+        f"[nn-dist] {nn_dist['wall_s']:.2f} s for {nn_dist['cells']} cells")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,9 +93,10 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
+def write_png(path: str, img: np.ndarray, text=None) -> None:
     """An (H, W) grey or (H, W, 3) RGB uint8 array as an 8-bit PNG, every
-    row unfiltered."""
+    row unfiltered; ``text`` ({keyword: value}, Latin-1) adds one ``tEXt``
+    chunk for each entry."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
             img.ndim == 3 and img.shape[2] != 3):
@@ -106,11 +107,90 @@ def write_png(path: str, img: np.ndarray) -> None:
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            img.reshape(h, -1)], axis=1)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(PNG_SIGNATURE)
         f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
                                                 0, 0, 0)))
+        for key, value in (text or {}).items():
+            f.write(_png_chunk(b"tEXt", key.encode("latin-1") + b"\0"
+                               + value.encode("latin-1")))
         f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         f.write(_png_chunk(b"IEND", b""))
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+#: channels of each 8-bit PNG colour type: grey, RGB, grey + alpha, RGBA
+PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def read_png_chunks(path: str) -> list:
+    """[(kind, data)] of the PNG file at ``path``, CRCs checked."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if not raw.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path} is not a PNG file")
+    chunks, pos = [], len(PNG_SIGNATURE)
+    while pos < len(raw):
+        (n,) = struct.unpack(">I", raw[pos:pos + 4])
+        body = raw[pos + 4:pos + 8 + n]
+        (crc,) = struct.unpack(">I", raw[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in a {body[:4]!r} chunk")
+        chunks.append((body[:4], body[4:]))
+        pos += 12 + n
+    return chunks
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced grey, grey + alpha, RGB or RGBA PNG as
+    uint8 (H, W) or (H, W, C), the channels PIL decodes for it. Rows may
+    use any of the five filter types; they are undone along the image's
+    anti-diagonals, each pixel after its left, upper and upper-left
+    neighbours."""
+    chunks = read_png_chunks(path)
+    kind, header = chunks[0]
+    if kind != b"IHDR":
+        raise ValueError(f"{path}: the first chunk is {kind!r}, not IHDR")
+    w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", header)
+    if depth != 8 or color not in PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace}; read_png takes 8-bit grey, "
+                         "grey + alpha, RGB or RGBA without interlace")
+    bpp = PNG_CHANNELS[color]
+    data = np.frombuffer(zlib.decompress(b"".join(
+        d for k, d in chunks if k == b"IDAT")), np.uint8)
+    data = data.reshape(h, 1 + w * bpp)
+    ftype = data[:, 0].astype(np.int32)
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown row filter {ftype.max()}")
+    filtered = data[:, 1:].reshape(h, w, bpp).astype(np.int32)
+    # zero row above and zero column left: a, b and c of the first row and
+    # column
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        xs = d - ys
+        a = out[ys + 1, xs]
+        b = out[ys, xs + 1]
+        c = out[ys, xs]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        pred = np.choose(ftype[ys][:, None], [np.zeros_like(a), a, b,
+                                              (a + b) // 2, paeth])
+        out[ys + 1, xs + 1] = (filtered[ys, xs] + pred) & 255
+    img = out[1:, 1:].astype(np.uint8)
+    return img[..., 0] if bpp == 1 else img
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """uint8 grey, grey + alpha, RGB or RGBA -> (H, W, 3), as PIL's
+    ``convert("RGB")`` does (alpha dropped, not composited)."""
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
 
 
 LINE_RGB = np.array([0, 255, 0], np.uint8)

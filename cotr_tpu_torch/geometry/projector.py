@@ -196,3 +196,36 @@ def unproject_depth(depth: torch.Tensor, intrinsic: torch.Tensor,
     xyzw = torch.cat([cam_pts, torch.ones_like(cam_pts[:, :1])], dim=1)
     world = (camera_to_world @ xyzw.T).T
     return world[:, :3] / world[:, 3:4]
+
+
+def splat_reprojections(points: torch.Tensor, proj: torch.Tensor,
+                        size: Tuple[int, int]) -> torch.Tensor:
+    """Project world points into a block of cameras at once and splat each
+    camera's depths: ``points`` (N, 3), ``proj`` (B, 3, 4) (each camera's
+    intrinsic @ extrinsic) -> (B, h, w), on the inputs' device and dtype.
+
+    Per camera it is ``pcd_3d_to_pcd_2d(keep_z=True, crop=True,
+    filter_neg=True, norm_coord=False)`` then ``pcd_2d_to_img_2d`` (no z
+    sort): a point counts where z > 0 and 0 <= x < w - 1, 0 <= y < h - 1;
+    its pixel is its position rounded half to even; where several points
+    hit one pixel the last in point order wins, as numpy's fancy
+    assignment keeps the last write; 0 where none hits. Duplicate indices
+    in a CUDA ``index_put_`` leave the winner undefined, so the winner is
+    the largest point ordinal (``scatter_reduce`` "amax", deterministic on
+    every device) and its z is gathered after."""
+    h, w = size
+    xyzw = torch.cat([points, torch.ones_like(points[:, :1])], dim=1)
+    cam = torch.matmul(proj, xyzw.T)                         # (B, 3, N)
+    z = cam[:, 2]
+    x, y = cam[:, 0] / z, cam[:, 1] / z
+    keep = (z > 0) & (x >= 0) & (x < w - 1) & (y >= 0) & (y < h - 1)
+    pixel = torch.where(keep, torch.round(y).long() * w
+                        + torch.round(x).long(), 0)
+    ordinal = torch.arange(points.shape[0], device=points.device)
+    ordinal = torch.where(keep, ordinal, -1)
+    winner = torch.full((proj.shape[0], h * w), -1, dtype=torch.long,
+                        device=points.device)
+    winner.scatter_reduce_(1, pixel, ordinal, "amax")
+    hit = winner >= 0
+    depth = torch.where(hit, torch.gather(z, 1, winner.clamp(min=0)), 0)
+    return depth.reshape(-1, h, w)

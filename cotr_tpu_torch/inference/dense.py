@@ -138,6 +138,17 @@ def _patch_affine(p: ImagePatch) -> Tuple[np.ndarray, np.ndarray]:
     return np.array([sx, sy]), np.array([tx, ty])
 
 
+def field_to_frame(field: torch.Tensor, affine, p: ImagePatch) -> np.ndarray:
+    """One side's patch-local field (h, w, 3) on the device -> the host
+    field at the patch's size: predictions mapped to global [-1, 1] of the
+    other image (float64 arithmetic, stored back in float32), PIL's resize
+    on the device, then the copy to the host."""
+    s, t = (torch.from_numpy(a).to(field.device) for a in affine)
+    field = torch.cat([(field[..., :2].double() * s + t).float(),
+                       field[..., 2:]], dim=-1)
+    return resize_pil(field, (p.h, p.w)).cpu().numpy()
+
+
 def merge_flow_patches(corrs: List[ImagePatch]
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Min-confidence merge of per-patch flow fields into the full frame.
@@ -186,21 +197,12 @@ def dense_flow_many(runner: ModelRunner, pairs, canvas_batch: int = 8,
         outs.append(dense_pass_device(runner, canvas, seed_stride))
     corr_all = torch.cat(outs, dim=0)
 
-    def to_frame(field, affine, p):
-        # patch-local predictions -> global [-1, 1] of the other image
-        # (float64 arithmetic, stored back in float32), then PIL's resize
-        # to the patch size, on the device
-        s, t = (torch.from_numpy(a).to(field.device) for a in affine)
-        field = torch.cat([(field[..., :2].double() * s + t).float(),
-                           field[..., 2:]], dim=-1)
-        return resize_pil(field, (p.h, p.w)).cpu().numpy()
-
     per_pair_a: List[List[ImagePatch]] = [[] for _ in pairs]
     per_pair_b: List[List[ImagePatch]] = [[] for _ in pairs]
     half = MAX_SIZE // seed_stride
     for k, (pi, p_i, p_j) in enumerate(jobs):
-        c_i = to_frame(corr_all[k, :, :half], _patch_affine(p_j), p_i)
-        c_j = to_frame(corr_all[k, :, half:], _patch_affine(p_i), p_j)
+        c_i = field_to_frame(corr_all[k, :, :half], _patch_affine(p_j), p_i)
+        c_j = field_to_frame(corr_all[k, :, half:], _patch_affine(p_i), p_j)
         per_pair_a[pi].append(ImagePatch(c_i, p_i.x, p_i.y, p_i.w, p_i.h,
                                          p_i.ow, p_i.oh))
         per_pair_b[pi].append(ImagePatch(c_j, p_j.x, p_j.y, p_j.w, p_j.h,

@@ -28,3 +28,16 @@ def constant(values: tuple, dtype: torch.dtype,
     inference mode, so autograd may save it whoever asked first."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+def module_command(module: str, device="cuda") -> list:
+    """The command line that runs ``module``'s ``main`` in a new Python:
+    ``python -u -m module`` on the card (its default); on the CPU a ``-c``
+    line that passes the device in. Arguments follow it."""
+    import sys
+
+    if torch.device(device).type == "cuda":
+        return [sys.executable, "-u", "-m", module]
+    return [sys.executable, "-u", "-c",
+            f"import sys; from {module} import main; "
+            f"main(sys.argv[1:], device={str(device)!r})"]

@@ -1,13 +1,14 @@
-"""Host wall-clock phase timer (counterpart of ``PhaseTimer`` in
-cotr_tpu/utils/profiling.py). Device timelines come from ``torch.profiler``
-and CUDA events (profile_serve.py, profile_train.py, chip_smoke.py)."""
+"""Host wall-clock phase timer and a chained per-op time (counterparts of
+``PhaseTimer`` and ``chained_op_time`` in cotr_tpu/utils/profiling.py).
+Device timelines come from ``torch.profiler`` and CUDA events
+(profile_serve.py, profile_train.py, chip_smoke.py)."""
 
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Callable, Dict
 
 
 class PhaseTimer:
@@ -37,3 +38,44 @@ class PhaseTimer:
             lines.append(f"{name}: {t:.3f}s total, {n} calls, "
                          f"{t / n * 1000:.2f}ms avg")
         return "\n".join(lines)
+
+
+def chained_op_time(fn: Callable, *args, iters: int = 20) -> float:
+    """Per-op time in ms from a dependency chain: ``fn(acc, *args)``
+    returns a 0-d tensor that the next call consumes, so no call can start
+    before the one before it ends. A chain of 1 call and one of
+    ``iters + 1`` calls are each run once to warm up and once timed; the
+    result is (t(iters + 1) - t(1)) / iters, which leaves out what both
+    chains pay once (launch, the final read).
+
+    On the card each chain is timed with CUDA events; on the CPU with the
+    host clock. The device is that of the first tensor in ``args``."""
+    import torch
+
+    device = next((a.device for a in args if torch.is_tensor(a)),
+                  torch.device("cpu"))
+
+    def chain(n: int):
+        acc = torch.zeros((), dtype=torch.float32, device=device)
+        for _ in range(n):
+            acc = fn(acc, *args)
+        return acc
+
+    def timed(n: int) -> float:
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain(n)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+        t0 = time.perf_counter()
+        float(chain(n))
+        return (time.perf_counter() - t0) * 1000.0
+
+    timed(1)
+    timed(iters + 1)
+    t1 = timed(1)
+    tn = timed(iters + 1)
+    return (tn - t1) / iters

@@ -157,6 +157,27 @@ for name in sys.argv[1].split(","):
     if name == "cotr_tpu_torch.models.torch_convert":
         assert mod._reference_key("transformer.dec0.cross_attn.k_proj.bias") == (
             "transformer.decoder.layers.0.multihead_attn.in_proj_bias", 1)
+    if name == "cotr_tpu_torch.tools.bench_loader":
+        import os, tempfile
+        cfg = mod.generate_scene(tempfile.mkdtemp(), 4, 24, 32)
+        assert os.path.isfile(os.path.join(
+            cfg.scenes_name_list[0]["image_dir"], "img_0003.npy.geometric.bin"))
+    if name == "cotr_tpu_torch.tools.make_side_by_side":
+        import os, tempfile
+        from cotr_tpu_torch.demos.demo_utils import read_png, write_png
+        path = os.path.join(tempfile.mkdtemp(), "c.png")
+        img = np.random.RandomState(0).randint(0, 256, (30, 40, 3))
+        write_png(path, mod.composite(img.astype(np.uint8), img[..., 0]
+                                      .astype(np.uint8)), text={"a": "b"})
+        assert read_png(path).shape == (382, 2 * 480 + 8, 3)
+    if name == "cotr_tpu_torch.tools.prepare_nn_distance_mat":
+        import torch
+        from cotr_tpu_torch.geometry.projector import splat_reprojections
+        pts = torch.tensor([[0.0, 0.0, 2.0], [0.01, 0.0, 3.0]],
+                           dtype=torch.float64)
+        k = torch.tensor([[[4.0, 0, 3.3, 0], [0, 4.0, 2.2, 0], [0, 0, 1, 0]]],
+                         dtype=torch.float64)
+        assert float(splat_reprojections(pts, k, (5, 7))[0, 2, 3]) == 3.0
     print("imported", name)
 """
 
@@ -271,3 +292,25 @@ def test_the_block_really_blocks():
         proc = _run_blocked(module, "--no-image-libs")
         assert proc.returncode != 0
         assert "blocked for this test" in proc.stderr
+
+
+#: the last tools (triage, loader bench, generated-scene training, the kNN
+#: overlap matrix, goldens and side by side), blocked the same way and
+#: without PIL, imageio and h5py; a scene is written in the card's formats,
+#: a side-by-side picture composed and read back, and the splat run
+_TOOL_MODULES = ["cotr_tpu_torch.utils.profiling",
+                 "cotr_tpu_torch.tools.triage_dense",
+                 "cotr_tpu_torch.tools.triage_multipair",
+                 "cotr_tpu_torch.tools.triage_guided",
+                 "cotr_tpu_torch.tools.bench_loader",
+                 "cotr_tpu_torch.tools.run_generated_training",
+                 "cotr_tpu_torch.tools.prepare_nn_distance_mat",
+                 "cotr_tpu_torch.tools.make_demo_goldens",
+                 "cotr_tpu_torch.tools.make_side_by_side"]
+
+
+def test_tool_modules_import_and_run_with_jax_and_image_libs_blocked():
+    proc = _run_blocked(",".join(_TOOL_MODULES), "--no-image-libs")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for module in _TOOL_MODULES:
+        assert f"imported {module}" in proc.stdout
