@@ -115,7 +115,7 @@ Phases (any failure exits non-zero):
     and the same with ZeRO-1; ms a step for each;
 25. the last tools, each run whole at its full width with a gate fixed
     before the first reading: ``[triage-dense]`` (the triage_dense twin:
-    dense_flow at 1024 x 1024 in bfloat16, its trials finite, the median
+    dense_flow at 1024 x 1024 in bfloat16, 31 trials, finite, the median
     split call's phases summing to its wall within 20% and that wall the
     trials' median within 20%), ``[triage-multipair]`` (64 pairs of 32
     queries at seed strides 1 and 4, one trial after the warm call: the
@@ -132,7 +132,17 @@ Phases (any failure exits non-zero):
     of 240 x 320 in both layouts) and ``[generated-training]`` (the
     orchestrator's three stages and its held-out eval in subprocesses,
     stage 1 killed and resumed), after [eval-suite];
-26. one JSON line describing each kernel, then the device line last.
+26. ``[dense-pass]``, last of the paths, so that the profiler it starts
+    runs after every timed phase: ``inference.dense_pass`` on one
+    generated pair (the 480 x 640 serving pair, B a known homography of
+    A), both stretched to 256 x 256, inside ``utils.profiling.trace``: its
+    two fields finite and (256, 256, 3), the tile kernel launched once an
+    encoder layer at (1, 512) and once a decoder layer and decode chunk at
+    (1, 8192), the fields equal to ``dense_flow``'s on the same pair, the
+    trace naming the attention kernel, and ``warp_by_flow(B, corr_a)``
+    closer to A than B is; then ``ops.crop_and_resize`` on the card
+    against the CPU (64 boxes of a 768 x 1024 image, out 256);
+27. one JSON line describing each kernel, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -184,6 +194,14 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # algorithms sum in other orders through 53 ResNet convs and 12 transformer
 # layers; outputs are canvas coordinates in [0, 1]
 FORWARD_TOL = 1e-3
+
+# [dense-pass]: dense_pass against dense_flow on the card (the same kernels
+# at the same shapes on the same canvas: only the host's float64 affine and
+# the identity resize of a square patch lie between them); crop_and_resize,
+# card against CPU (the same float32 gather and blend)
+DENSE_PASS_TOL = 1e-5
+CROP_AND_RESIZE_TOL = 1e-5
+CROP_AND_RESIZE_BOXES = 64
 
 # (B, Lq) of each attention on the main path (S = 512 keys, 8 heads of 32)
 SHAPES = [("encoder self-attention", 2, 512),
@@ -287,7 +305,11 @@ PARALLEL_LOSS_RTOL = 1e-5
 # phases of the median split call sum to that call's wall within this
 # share, and that wall is the plain trials' median within it too
 TRIAGE_SPLIT_SHARE = 0.2
-TRIAGE_DENSE_TRIALS = 7
+# 31, not the tool's default 7: one call's wall spreads from 0.07 to 0.15 s
+# on the card's shared host (the first few calls the slowest), and the
+# median of 7 moved the split call to 0.78 and 1.26 of the trials' median
+# in two runs, the wrong way as often as the right one
+TRIAGE_DENSE_TRIALS = 31
 # cut for the script's time: 1 trial of the multi-pair triage after its
 # warm call (its default is 3), 3 rounds of the guided one (8), the fewest
 # that give its correlations
@@ -742,6 +764,124 @@ def phase_serve(attention, engine_cls, runner) -> tuple:
     log_counts("serve", record)
     record["pairs"] = summary
     return record, pairs[0]
+
+
+def phase_dense_pass(attention, dense, runner, sampling, trace) -> dict:
+    """``dense_pass`` on the serving pair of 480 x 640 stretched to 256^2,
+    traced, against ``dense_flow``; ``warp_by_flow`` through its field;
+    ``crop_and_resize`` on the card against the CPU."""
+    t_phase = time.perf_counter()
+    img_a, img_b, hmat = make_pair(np.random.RandomState(1), (480, 640),
+                                   2.0, 1.0, (16, 10))
+    n = 256
+    a_sq, b_sq = (sampling.resize_pil_host(im, (n, n)) for im in (img_a,
+                                                                  img_b))
+    # the homography between the stretched images: B(H x) = A(x) in
+    # continuous pixel coordinates, each axis scaled on its own
+    scale = np.diag([n / 640, n / 480, 1.0])
+    h_sq = scale @ hmat @ np.linalg.inv(scale)
+    enc = runner.model.cfg.enc_layers
+    dec = runner.model.cfg.dec_layers
+    chunks = -(-n * 2 * n // runner.decode_chunk)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as td:
+        with counted(attention, {}) as record:
+            with trace(td):
+                corr_a, corr_b = dense.dense_pass(runner, a_sq, b_sq)
+        files = [f for f in os.listdir(td) if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise AssertionError(f"[dense-pass] trace files {files}")
+        with open(os.path.join(td, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"
+                      and "attention_kernel" in e.get("name", "")})
+    log(f"[dense-pass] dense_pass on {n}x{n}: {record['wall_s']:.3f} s "
+        f"traced; the trace names {kernels}")
+    log_counts("dense-pass", record)
+    for name, corr in (("corr_a", corr_a), ("corr_b", corr_b)):
+        if corr.shape != (n, n, 3) or not np.isfinite(corr).all():
+            raise AssertionError(f"[dense-pass] {name}: {corr.shape}, "
+                                 f"finite {np.isfinite(corr).all()}")
+    want = [dict(b=1, lq=512, s=512, dtype="float32", launches=enc),
+            dict(b=1, lq=runner.decode_chunk, s=512, dtype="float32",
+                 launches=dec * chunks)]
+    if record["shape_counts"] != want:
+        raise AssertionError(f"[dense-pass] launches {record['shape_counts']}"
+                             f", expected {want}")
+    if not any("attention_kernel_tile" in k for k in kernels):
+        raise AssertionError("[dense-pass] the trace names no tile kernel")
+
+    flow_a, con_a, flow_b, con_b = dense.dense_flow(runner, a_sq, b_sq)
+    torch.cuda.synchronize()
+    flow_err = max(float(np.abs(c[..., :2] - fl).max()) for c, fl in
+                   ((corr_a, flow_a), (corr_b, flow_b)))
+    con_err = max(float(np.abs(c[..., 2] - cn).max()) for c, cn in
+                  ((corr_a, con_a), (corr_b, con_b)))
+    log(f"[dense-pass] against dense_flow: flow max abs err {flow_err:.2e}, "
+        f"confidence {con_err:.2e} (tol {DENSE_PASS_TOL})")
+    if not max(flow_err, con_err) <= DENSE_PASS_TOL:
+        raise AssertionError("[dense-pass] dense_pass disagrees with "
+                             "dense_flow")
+    t0 = time.perf_counter()
+    dense.dense_pass(runner, a_sq, b_sq)  # returns numpy: the card is done
+    untraced_s = time.perf_counter() - t0
+    log(f"[dense-pass] dense_pass again without the profiler: "
+        f"{untraced_s:.3f} s")
+
+    # a query at pixel (j, i) sits at x = j / n of its half: the pixel's
+    # corner, which the homography maps into B
+    ys, xs = np.mgrid[0:n, 0:n]
+    grid = np.stack([xs.ravel(), ys.ravel()], axis=1).astype(np.float64)
+    pred = (corr_a[..., :2].reshape(-1, 2).astype(np.float64) + 1) / 2 * n
+    err = np.linalg.norm(pred - apply_h(h_sq, grid), axis=1)
+    conf = corr_a[..., 2].ravel() < 0.02
+    median_conf = float(np.median(err[conf])) if conf.any() else float("nan")
+    centres = apply_h(h_sq, grid + 0.5)
+    inside = ((centres >= 0) & (centres < n)).all(axis=1).reshape(n, n)
+    warped = dense.warp_by_flow(torch.from_numpy(b_sq).cuda(),
+                                torch.from_numpy(corr_a).cuda())
+    a_f = a_sq.astype(np.float32)
+    warped_diff = float(np.abs(warped - a_f)[inside].mean())
+    plain_diff = float(np.abs(b_sq.astype(np.float32) - a_f)[inside].mean())
+    log(f"[dense-pass] flow error vs the homography: median "
+        f"{np.median(err):.2f} px over every pixel, {median_conf:.2f} px "
+        f"over the {conf.mean():.0%} with confidence < 0.02; "
+        f"warp_by_flow(B, corr_a) vs A: mean abs diff {warped_diff:.2f} over "
+        f"{inside.mean():.0%} of the pixels, unwarped B {plain_diff:.2f}")
+    if not warped_diff < plain_diff:
+        raise AssertionError("[dense-pass] the warped image is no closer "
+                             "to A than B is")
+
+    rng = np.random.RandomState(23)
+    img = procedural_texture(rng, 768, 1024).astype(np.float32) / 255.0
+    size = rng.uniform(16, 700, (CROP_AND_RESIZE_BOXES, 2))
+    corner = rng.uniform(0, 1, (CROP_AND_RESIZE_BOXES, 2)) \
+        * (np.array([1024, 768]) - size)
+    boxes = np.concatenate([corner, size], axis=1).astype(np.float32)
+    t0 = time.perf_counter()
+    got = sampling.crop_and_resize(torch.from_numpy(img).cuda(), boxes, n)
+    torch.cuda.synchronize()
+    crop_s = time.perf_counter() - t0
+    cpu = sampling.crop_and_resize(torch.from_numpy(img), boxes, n)
+    crop_err = float((got.cpu() - cpu).abs().max())
+    log(f"[dense-pass] crop_and_resize, {CROP_AND_RESIZE_BOXES} boxes of a "
+        f"768x1024 image to {n}: card vs CPU max abs err {crop_err:.2e} "
+        f"(tol {CROP_AND_RESIZE_TOL}), {crop_s * 1e3:.1f} ms on the card "
+        f"(first call)")
+    if got.shape != (CROP_AND_RESIZE_BOXES, n, n, 3) \
+            or not crop_err <= CROP_AND_RESIZE_TOL:
+        raise AssertionError("[dense-pass] crop_and_resize: the card "
+                             "disagrees with the CPU")
+    record.update(
+        untraced_s=untraced_s, kernels_in_trace=kernels,
+        dense_flow_err=flow_err,
+        confidence_err=con_err, median_px=float(np.median(err)),
+        median_px_confident=median_conf,
+        confident_share=float(conf.mean()), warped_diff=warped_diff,
+        unwarped_diff=plain_diff, crop_and_resize_err=crop_err,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"[dense-pass] phase wall {record['phase_s']:.2f} s")
+    return record
 
 
 def grid_queries(h: int, w: int, nx: int = 50, ny: int = 40) -> np.ndarray:
@@ -2625,7 +2765,8 @@ def replaced(module, name: str, value):
 
 def phase_triage_dense(attention) -> dict:
     """The triage_dense twin at its defaults: the flagship in bfloat16, two
-    1024 x 1024 images, 7 trials, each followed by a split call. Gates:
+    1024 x 1024 images, TRIAGE_DENSE_TRIALS trials, each followed by a
+    split call. Gates:
     every trial's output is finite (the twin raises otherwise); the phases
     of the reported split call sum to that call's wall within
     TRIAGE_SPLIT_SHARE (no stage of the call goes untimed); and that wall,
@@ -3197,6 +3338,15 @@ def main() -> int:
         suite = phase_eval_suite(attention, suite_dir)
         bench_loader = phase_bench_loader(suite_dir)
         gen_training = phase_generated_training(suite_dir)
+    # last: the profiler's CUDA tracing (CUPTI) stays out of every timed
+    # phase before it
+    from cotr_tpu_torch.inference import dense
+    from cotr_tpu_torch.utils.profiling import trace
+    runner = ModelRunner(load_model(FLAGSHIP, COTRConfig(), device="cuda"),
+                         device="cuda")
+    dense_record = phase_dense_pass(attention, dense, runner, sampling,
+                                    trace)
+    del runner
     if file_digest(FLAGSHIP) != flagship_digest:
         raise AssertionError("checkpoints/flagship.npz changed during the "
                              "run")
@@ -3205,6 +3355,7 @@ def main() -> int:
     # are left out, and so is serving the trained weights, which repeats
     # the scan engine's shapes
     paths = {"scan engine, 3 pairs": serve,
+             "dense_pass, one square pair": dense_record,
              "squad engine, 2,000 queries": squad,
              "multi-pair, 8 pairs x 32 queries": multipair,
              "cycle-consistent multi-pair, 2 pairs": multipair["cycle"],
@@ -3239,8 +3390,8 @@ def main() -> int:
              "bench_sharded twin, N = 2": par_serve["bench"],
              "train steps of [parallel-train], 5 x 5 (the einsum path)":
                  par_train,
-             "triage_dense twin, 1 + 7 dense_flow calls and 7 split calls":
-                 triage_dense,
+             f"triage_dense twin, 1 + {TRIAGE_DENSE_TRIALS} dense_flow calls "
+             f"and {TRIAGE_DENSE_TRIALS} split calls": triage_dense,
              **{f"triage_multipair twin, 64 pairs x 32 queries, {tag}": run
                 for tag, run in triage_multipair.items()},
              f"triage_guided twin, 1 + {TRIAGE_GUIDED_ROUNDS} rounds":
@@ -3276,6 +3427,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build=build, crops=crops, forward=forward,
                        serve_wall_s=serve["wall_s"], serve=serve,
+                       dense_pass=dense_record,
                        squad=squad, multipair=multipair,
                        train_parity=train_parity, train=train,
                        eval_step=eval_step, checkpoint=checkpoint,
@@ -3294,7 +3446,8 @@ def main() -> int:
                        goldens=goldens, side_by_side=side_by_side,
                        kernels=kernels),
                   f, indent=1)
-    log(f"[serve] wall {serve['wall_s']:.3f} s; [grouped] wall "
+    log(f"[serve] wall {serve['wall_s']:.3f} s; [dense-pass] "
+        f"{dense_record['phase_s']:.2f} s; [grouped] wall "
         f"{squad['wall_s']:.3f} s; [multipair] wall "
         f"{multipair['wall_s']:.3f} s; [train] "
         f"{train['main']['ms_per_step']:.1f} ms a step float32, "

@@ -33,4 +33,16 @@ split their squads and tasks; ``tools/bench_sharded`` and
 inference bench and multi-device dry run.
 """
 
+from cotr_tpu_torch.config import COTRConfig, InferenceConfig, TrainConfig
+from cotr_tpu_torch.models import COTRModel, build_model
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "COTRConfig",
+    "InferenceConfig",
+    "TrainConfig",
+    "COTRModel",
+    "build_model",
+    "__version__",
+]

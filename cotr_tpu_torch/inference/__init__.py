@@ -1,9 +1,10 @@
 """Inference: the dense seed pass, the zoom refinement (scan and squad),
 the engines and the densification of sparse correspondences."""
 
-from cotr_tpu_torch.inference.dense import (dense_flow, full_grid_queries,
+from cotr_tpu_torch.inference.dense import (dense_flow, dense_pass,
+                                            full_grid_queries,
                                             merge_flow_patches,
-                                            to_square_patches)
+                                            to_square_patches, warp_by_flow)
 from cotr_tpu_torch.inference.engine import (FasterSparseEngine,
                                              SparseEngine,
                                              stretch_to_square)
@@ -13,9 +14,11 @@ from cotr_tpu_torch.inference.runner import ModelRunner
 
 __all__ = [
     "dense_flow",
+    "dense_pass",
     "full_grid_queries",
     "merge_flow_patches",
     "to_square_patches",
+    "warp_by_flow",
     "FasterSparseEngine",
     "SparseEngine",
     "stretch_to_square",

@@ -6,7 +6,9 @@
 * patch tiling (:func:`to_square_patches`) and min-confidence merging
   (:func:`merge_flow_patches`) are host numpy around the device passes; the
   patch-to-frame affines (closed form) and PIL's field resize run on the
-  device, where the JAX package ran them on the host with PIL.
+  device, where the JAX package ran them on the host with PIL;
+* :func:`dense_pass` is one such pass over one square pair, and
+  :func:`warp_by_flow` resamples an image through a field.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from cotr_tpu_torch.ops.canvas import normalize_canvas
 from cotr_tpu_torch.ops.sampling import (grid_sample, resize_bilinear,
                                          resize_pil)
 from cotr_tpu_torch.utils.constants import MAX_SIZE
+from cotr_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -129,6 +132,17 @@ def _canvases_for_jobs(runner: ModelRunner, jobs_imgs) -> torch.Tensor:
                                        torch.stack(halves[1::2])], dim=2))
 
 
+def dense_pass(runner: ModelRunner, img_a_sq: np.ndarray,
+               img_b_sq: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Two square uint8 or float images -> (corr_a, corr_b), each
+    (256, 256, 3) numpy: per-pixel [-1, 1] target coordinates in the
+    *other* image and the cycle confidence. One canvas, one full-grid pass
+    on the runner's device."""
+    canvas = _canvases_for_jobs(runner, [(img_a_sq, img_b_sq)])
+    corr = dense_pass_device(runner, canvas)[0].cpu().numpy()
+    return corr[:, :MAX_SIZE], corr[:, MAX_SIZE:]
+
+
 def _patch_affine(p: ImagePatch) -> Tuple[np.ndarray, np.ndarray]:
     """Closed-form affine from patch-local [-1, 1] coords to global [-1, 1]
     coords of the original image (both rects are axis-aligned)."""
@@ -222,3 +236,22 @@ def dense_flow(runner: ModelRunner, img_a: np.ndarray, img_b: np.ndarray):
     Returns (corr_a, con_a, corr_b, con_b): corr_* are (H, W, 2) flows in
     the other image's [-1, 1] coords; con_* are (H, W) cycle errors."""
     return dense_flow_many(runner, [(img_a, img_b)], canvas_batch=4)[0]
+
+
+def warp_by_flow(img_other, corr, device=None) -> np.ndarray:
+    """Resample the other image (H', W', C) through a [-1, 1] flow field
+    corr (H, W, 2 or more; channels past the second, such as
+    :func:`dense_pass`'s confidence, are not read) with :func:`grid_sample`.
+    Returns (H, W, C) float32 numpy.
+
+    Tensors are resampled on their device; numpy inputs on ``device``, the
+    card unless the caller asks for the CPU."""
+    if device is None:
+        device = next((t.device for t in (img_other, corr)
+                       if torch.is_tensor(t)), "cuda")
+    dev = resolve_device(device)
+    img, grid = (x if torch.is_tensor(x) else
+                 torch.from_numpy(np.ascontiguousarray(x))
+                 for x in (img_other, corr))
+    return grid_sample(img.to(dev, torch.float32),
+                       grid[..., :2].to(dev, torch.float32)).cpu().numpy()

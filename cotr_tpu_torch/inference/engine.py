@@ -33,6 +33,7 @@ from cotr_tpu_torch.utils.constants import (BASE_ZOOM, MAX_SIZE,
                                             THRESHOLD_AREA,
                                             THRESHOLD_PIXELS_RELATIVE,
                                             THRESHOLD_SPARSE)
+from cotr_tpu_torch.utils.misc import positive_int
 
 
 def relative_scales(area_a: float, area_b: float) -> Tuple[float, float]:
@@ -66,6 +67,12 @@ class SparseEngine:
         task is one canvas through the whole model).
     mode: 'stretching' (non-square images stretched square for the seed
         pass) or 'tile' (patch tiling).
+    task_bucket: a positive int, taken for the JAX signature and checked.
+        The JAX package pads each dispatch's task count to a multiple of it
+        to bound recompilation; nothing here compiles per shape, so
+        dispatches are padded only to the mesh's size.
+    image_bucket: the multi-pair image stacks are padded to multiples of
+        it; also passed to the refiner as its ``bucket``.
     seed: seed of the confidence-masked random seeding.
     crop_dtype: dtype of the crop matrix products; by default the model's
         compute dtype.
@@ -77,7 +84,8 @@ class SparseEngine:
     """
 
     def __init__(self, runner: ModelRunner, batch_size: int = 256,
-                 mode: str = "stretching", seed: int = 0, crop_dtype=None,
+                 mode: str = "stretching", task_bucket: int = 256,
+                 image_bucket: int = 256, seed: int = 0, crop_dtype=None,
                  mesh=None, seed_stride: int = 1):
         if mode not in ("stretching", "tile"):
             raise ValueError(f"mode must be 'stretching' or 'tile', got "
@@ -90,11 +98,13 @@ class SparseEngine:
         self.runner = runner
         self.batch_size = batch_size
         self.mode = mode
+        positive_int("task_bucket", task_bucket)
+        self.image_bucket = positive_int("image_bucket", image_bucket)
         cfg = getattr(runner.model, "cfg", None)
         self.crop_dtype = crop_dtype if crop_dtype is not None else \
             getattr(torch, getattr(cfg, "dtype", "float32"))
-        self.refiner = BatchRefiner(runner, crop_dtype=self.crop_dtype,
-                                    mesh=mesh)
+        self.refiner = BatchRefiner(runner, bucket=image_bucket,
+                                    crop_dtype=self.crop_dtype, mesh=mesh)
         self.rng = np.random.RandomState(seed)
         self.total_tasks = 0
         # opt-in diagnostics: when True, each cotr_corr_multiscale call
@@ -219,8 +229,8 @@ class SparseEngine:
         (len(zoom_ins)+1, T, 2): the seed row plus one converged row per zoom
         level."""
         s_from, s_to = relative_scales(area_a, area_b)
-        dev_a = self.refiner.prepare_image(img_a)
-        dev_b = self.refiner.prepare_image(img_b)
+        dev_a, hw_a = self.refiner.prepare_image(img_a)
+        dev_b, hw_b = self.refiner.prepare_image(img_b)
         histories = []
         for start in range(0, len(loc_from), self.batch_size):
             lf = loc_from[start:start + self.batch_size]
@@ -230,8 +240,9 @@ class SparseEngine:
             if pad:
                 lf = np.concatenate([lf, np.zeros((pad, 2))], axis=0)
                 lt = np.concatenate([lt, np.zeros((pad, 2))], axis=0)
-            hist = self.refiner.refine(dev_a, dev_b, lf, lt, s_from, s_to,
-                                       zoom_ins, converge_iters)[:, :n]
+            hist = self.refiner.refine(dev_a, hw_a, dev_b, hw_b, lf, lt,
+                                       s_from, s_to, zoom_ins,
+                                       converge_iters)[:, :n]
             if np.isnan(hist).any():
                 raise ValueError("NaN in refinement predictions")
             histories.append(hist)
@@ -513,7 +524,6 @@ class FasterSparseEngine(SparseEngine):
         chunking of the device calls (inference/grouped.py). group_cap
         bounds the canvases per call; with max_load in the thousands it must
         drop so the (group_cap, max_load + 1, d) decoder buffers fit.
-    image_bucket: multi-pair image stacks are padded to multiples of this.
     squads_impl: "native" (the C++ squad formation, built at first use) or
         "numpy".
     mesh: a local mesh: the squad axis of every device call is split over
@@ -522,14 +532,14 @@ class FasterSparseEngine(SparseEngine):
     """
 
     def __init__(self, runner: ModelRunner, batch_size: int = 256,
-                 mode: str = "stretching", seed: int = 0, max_load: int = 256,
+                 mode: str = "stretching", task_bucket: int = 256,
+                 image_bucket: int = 256, seed: int = 0, max_load: int = 256,
                  mesh=None, crop_dtype=None, safe_area: float = 0.5,
                  group_cap: int = 128, group_bucket: int = 8,
                  member_bucket: int = 64, member_ladder: bool = False,
-                 seed_stride: int = 1, image_bucket: int = 256,
-                 squads_impl: str = "native"):
-        super().__init__(runner, batch_size, mode, seed,
-                         crop_dtype=crop_dtype, mesh=mesh,
+                 seed_stride: int = 1, squads_impl: str = "native"):
+        super().__init__(runner, batch_size, mode, task_bucket, image_bucket,
+                         seed, crop_dtype=crop_dtype, mesh=mesh,
                          seed_stride=seed_stride)
         # above 1.0 members would leave the pilot's patch (queries outside
         # the canvas); at or below 0 grouping means nothing
@@ -544,7 +554,6 @@ class FasterSparseEngine(SparseEngine):
         self.group_bucket = group_bucket
         self.member_bucket = member_bucket
         self.member_ladder = member_ladder
-        self.image_bucket = image_bucket
         self.squads_impl = squads_impl
         shards = self.refiner.shards
         if group_bucket % shards or group_cap % shards:
@@ -570,13 +579,13 @@ class FasterSparseEngine(SparseEngine):
     def _refine_all(self, img_a, img_b, loc_from, loc_to, area_a, area_b,
                     zoom_ins, converge_iters):
         s_from, s_to = relative_scales(area_a, area_b)
-        dev_a = self.refiner.prepare_image(img_a)
-        dev_b = self.refiner.prepare_image(img_b)
+        dev_a, hw_a = self.refiner.prepare_image(img_a)
+        dev_b, hw_b = self.refiner.prepare_image(img_b)
         history = refine_grouped(
-            self.runner, self._stepper, dev_a, img_a.shape[:2], dev_b,
-            img_b.shape[:2], np.asarray(loc_from, np.float64),
-            np.asarray(loc_to, np.float64), s_from, s_to, zoom_ins, self.rng,
-            converge_iters=converge_iters, **self._grouping())
+            self.runner, self._stepper, dev_a, hw_a, dev_b, hw_b,
+            np.asarray(loc_from, np.float64), np.asarray(loc_to, np.float64),
+            s_from, s_to, zoom_ins, self.rng, converge_iters=converge_iters,
+            **self._grouping())
         self.total_tasks += history.shape[0] * history.shape[1]
         return np.concatenate([np.asarray(loc_to)[None], history], axis=0)
 

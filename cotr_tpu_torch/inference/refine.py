@@ -34,6 +34,7 @@ from cotr_tpu_torch.ops.sampling import crop_and_resize_matmul
 from cotr_tpu_torch.parallel.mesh import (LocalMesh, replicate,
                                           require_local_mesh, shard_batch)
 from cotr_tpu_torch.utils.constants import MAX_SIZE
+from cotr_tpu_torch.utils.misc import positive_int
 
 
 def patch_box(pos: torch.Tensor, scale, h, w
@@ -144,14 +145,31 @@ def refine_loop(forward, img_a: torch.Tensor, img_b: torch.Tensor,
     return torch.stack(per_step[:final_start] + [loc_to], dim=0)
 
 
+def _true_extent(img: torch.Tensor, hw) -> torch.Tensor:
+    """The [:h, :w] view of an image that may be padded past (h, w)."""
+    h, w = (int(v) for v in hw)
+    if not (0 < h <= img.shape[0] and 0 < w <= img.shape[1]):
+        raise ValueError(f"extent {(h, w)} does not fit the "
+                         f"{tuple(img.shape[:2])} image")
+    return img[:h, :w]
+
+
 class BatchRefiner:
     """Runs the zoom refinement for a runner's model on its device, or with
     a local ``mesh`` on the mesh's devices (the task axis split in equal
-    shares, in order)."""
+    shares, in order).
 
-    def __init__(self, runner, crop_dtype=torch.float32,
+    ``bucket`` (a positive int) is the JAX package's image bucket, taken
+    for its signature and kept as ``self.bucket``; it pads nothing. The JAX
+    package pads images to multiples of it so that one compilation serves
+    many pairs; nothing here compiles per shape, so :meth:`prepare_image`
+    does not pad. :meth:`refine` takes each image with its true (h, w), and
+    an image a caller padded works too."""
+
+    def __init__(self, runner, bucket: int = 256, crop_dtype=torch.float32,
                  mesh: Optional[LocalMesh] = None):
         self.runner = runner
+        self.bucket = positive_int("bucket", bucket)
         self.crop_dtype = crop_dtype
         self.mesh = None if mesh is None else \
             require_local_mesh(mesh, "BatchRefiner")
@@ -166,10 +184,11 @@ class BatchRefiner:
         """The entries the task axis is split over (1 without a mesh)."""
         return 1 if self.mesh is None else len(self.mesh.devices)
 
-    def prepare_image(self, img: np.ndarray) -> torch.Tensor:
-        """uint8 or float HWC image -> [0, 1] float32 image on the device.
-        uint8 moves as uint8 and converts on the device; a float image whose
-        maximum exceeds 2 is taken as [0, 255]."""
+    def prepare_image(self, img: np.ndarray
+                      ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """uint8 or float HWC image -> ([0, 1] float32 image on the device,
+        (h, w)). uint8 moves as uint8 and converts on the device; a float
+        image whose maximum exceeds 2 is taken as [0, 255]."""
         img = np.asarray(img)
         dev = torch.from_numpy(np.ascontiguousarray(img)).to(
             self.runner.device)
@@ -179,15 +198,21 @@ class BatchRefiner:
             dev = dev.float()
             if float(img.max()) > 2.0:
                 dev = dev / 255.0
-        return dev
+        return dev, (int(img.shape[0]), int(img.shape[1]))
 
-    def refine(self, img_a: torch.Tensor, img_b: torch.Tensor,
+    def refine(self, img_a: torch.Tensor, hw_a, img_b: torch.Tensor, hw_b,
                loc_from: np.ndarray, loc_to0: np.ndarray,
                s_from: float, s_to: float, zoom_ins: Sequence[float],
                converge_iters: int = 1) -> np.ndarray:
         """Run the full zoom schedule for T tasks; returns the per-zoom-level
         history (len(zoom_ins), T, 2) as numpy, the final row converged.
-        With a mesh, T must be a multiple of its size (the engine pads)."""
+
+        img_a, img_b: [0, 1] float images on the device, each with its true
+        (h, w) in ``hw_a`` / ``hw_b``; only the [:h, :w] view is read, so a
+        padded image gives the answers of the unpadded one. With a mesh, T
+        must be a multiple of its size (the engine pads)."""
+        img_a = _true_extent(img_a, hw_a)
+        img_b = _true_extent(img_b, hw_b)
         zooms = zoom_schedule(zoom_ins, converge_iters)
         final_start = len(zoom_ins) - 1
         loc_from = torch.as_tensor(np.asarray(loc_from), dtype=torch.float32)

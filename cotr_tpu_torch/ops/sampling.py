@@ -3,12 +3,14 @@ cotr_tpu/ops/sampling.py), images in HWC layout.
 
 * :func:`gather_bilinear`: bilinear samples at float pixel coordinates,
   each corner outside the image contributing zero (or read clamped).
-* :func:`grid_sample`: torch semantics, ``align_corners=False``, zero
-  padding; a normalized coordinate g in [-1, 1] maps to pixel
-  ((g + 1) * size - 1) / 2.
+* :func:`grid_sample`: torch semantics, zero padding; with
+  ``align_corners=False`` (the default) a normalized coordinate g in
+  [-1, 1] maps to pixel ((g + 1) * size - 1) / 2.
 * :func:`resize_bilinear`: the JAX package's ``jax.image.resize(method=
-  "linear", antialias=True)``: a center-aligned triangle filter, widened on
-  downscale.
+  "linear")``: a center-aligned triangle filter, widened on downscale
+  with ``antialias=True`` (the default).
+* :func:`crop_and_resize`: plain bilinear crops (no anti-aliasing) on
+  PIL's center mapping, through :func:`gather_bilinear`.
 * :func:`crop_and_resize_matmul`: PIL-exact anti-aliased crop-and-resize as
   two batched matrix products with per-box triangle-filter matrices
   (:func:`pil_axis_weights`).
@@ -60,7 +62,8 @@ def gather_bilinear(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return top * (1 - ty) + bot * ty
 
 
-def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def grid_sample(image: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False) -> torch.Tensor:
     """image (H, W, C) with grid (..., 2), or image (B, H, W, C) with grid
     (B, ..., 2); grid holds normalized (x, y). Returns (..., C) or
     (B, ..., C)."""
@@ -71,22 +74,46 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     lead = grid.shape[1:-1]
     g = grid.reshape(b, -1, 1, 2).to(image.dtype)
     out = F.grid_sample(image.permute(0, 3, 1, 2), g, mode="bilinear",
-                        padding_mode="zeros", align_corners=False)
+                        padding_mode="zeros", align_corners=align_corners)
     out = out[..., 0].permute(0, 2, 1).reshape(b, *lead, image.shape[-1])
     return out if batched else out[0]
 
 
-def resize_bilinear(image: torch.Tensor,
-                    out_hw: Tuple[int, int]) -> torch.Tensor:
-    """(H, W, C) or (N, H, W, C) float image -> (out_h, out_w) with an
-    anti-aliased triangle filter (matches jax.image.resize 'linear' with
-    antialias=True)."""
+def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int],
+                    antialias: bool = True) -> torch.Tensor:
+    """(H, W, C) or (N, H, W, C) float image -> (out_h, out_w) with a
+    center-aligned triangle filter, widened on downscale when
+    ``antialias`` (jax.image.resize 'linear')."""
     batched = image.dim() == 4
     x = (image if batched else image[None]).permute(0, 3, 1, 2)
     out = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                        align_corners=False, antialias=True)
+                        align_corners=False, antialias=antialias)
     out = out.permute(0, 2, 3, 1)
     return out if batched else out[0]
+
+
+def crop_and_resize(image: torch.Tensor, boxes, out_size: int
+                    ) -> torch.Tensor:
+    """Crop axis-aligned boxes and resize each to (out_size, out_size), on
+    the image's device.
+
+    image (H, W, C); boxes (N, 4) float (x0, y0, w, h) in pixels, a tensor
+    or an array. Returns (N, out_size, out_size, C) in the image's float
+    dtype (float32 for an integer image). Plain bilinear, no
+    anti-aliasing: output pixel i samples PIL's center mapping
+    x0 + (i + 0.5) * w / out - 0.5, clamped to [x0, x0 + w - 1] so that no
+    pixel outside the box is read."""
+    dt = image.dtype if image.is_floating_point() else torch.float32
+    boxes = torch.as_tensor(boxes, dtype=dt, device=image.device)
+    idx = (torch.arange(out_size, dtype=dt, device=image.device) + 0.5) \
+        / out_size
+    x0, y0, bw, bh = (boxes[:, i:i + 1] for i in range(4))
+    xs = torch.minimum(torch.maximum(x0 + idx * bw - 0.5, x0), x0 + bw - 1)
+    ys = torch.minimum(torch.maximum(y0 + idx * bh - 0.5, y0), y0 + bh - 1)
+    n = boxes.shape[0]
+    gx = xs[:, None, :].expand(n, out_size, out_size)
+    gy = ys[:, :, None].expand(n, out_size, out_size)
+    return gather_bilinear(image.to(dt), gx, gy, zero_outside=False)
 
 
 def pil_axis_weights(starts: torch.Tensor, sizes: torch.Tensor,

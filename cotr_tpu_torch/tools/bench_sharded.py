@@ -149,9 +149,10 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> dict:
             "q_s_wall": g * m / wall}
 
         refiner = BatchRefiner(runner, mesh=mesh)
+        hw = tuple(img.shape[:2])
         hist, wall = _timed(lambda: refiner.refine(
-            img, img, loc.copy(), loc.copy(), 1.0, 1.0, zooms), args.iters,
-            dev)
+            img, hw, img, hw, loc.copy(), loc.copy(), 1.0, 1.0, zooms),
+            args.iters, dev)
         outs[("scan", n)] = hist
         calls = sum(refiner.device_task_count) // tasks
         result["configs"][f"scan_n{n}"] = {

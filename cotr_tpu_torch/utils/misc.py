@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numbers
 import random
 from typing import Sequence
 
@@ -15,6 +16,14 @@ def fix_randomness(seed: int = 42) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def positive_int(name: str, value) -> int:
+    """``value`` as an int; ValueError unless it is a positive integer."""
+    if isinstance(value, bool) or not isinstance(value, numbers.Integral) \
+            or value < 1:
+        raise ValueError(f"{name} must be a positive int, got {value!r}")
+    return int(value)
 
 
 def has_nan(x) -> bool:

@@ -1,14 +1,37 @@
-"""Host wall-clock phase timer and a chained per-op time (counterparts of
-``PhaseTimer`` and ``chained_op_time`` in cotr_tpu/utils/profiling.py).
-Device timelines come from ``torch.profiler`` and CUDA events
-(profile_serve.py, profile_train.py, chip_smoke.py)."""
+"""A profiler trace, a host wall-clock phase timer and a chained per-op
+time (counterparts of ``trace``, ``PhaseTimer`` and ``chained_op_time`` in
+cotr_tpu/utils/profiling.py). Device timelines come from ``torch.profiler``
+and CUDA events (profile_serve.py, profile_train.py, chip_smoke.py)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the body (CPU activity, and the
+    card's where there is one) and write it into ``log_dir`` as a Chrome
+    trace, ``<pid>.<ns>.pt.trace.json`` (Perfetto or chrome://tracing read
+    it), also when the body raises. Yields the profiler, whose
+    ``key_averages()`` sum the trace by name."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
 class PhaseTimer:

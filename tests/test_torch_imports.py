@@ -56,10 +56,18 @@ class Block(importlib.abc.MetaPathFinder):
             blocked.append("PIL")
         if "--no-image-libs" in sys.argv:
             blocked += ["PIL", "imageio", "h5py"]
+        if "--no-triton" in sys.argv:
+            blocked.append("triton")
         if name.split(".")[0] in blocked:
             raise ImportError("blocked for this test: " + name)
 
 sys.meta_path.insert(0, Block())
+if "--no-build" in sys.argv:
+    # nvcc and the host compiler run in subprocesses: none may start
+    import subprocess
+    def no_process(*args, **kwargs):
+        raise RuntimeError("a process started: " + repr(args)[:200])
+    subprocess.Popen = no_process
 import numpy as np
 # the MegaDepth slice's run: a generated scene through its modules in turn
 megadepth = "--no-image-libs" in sys.argv
@@ -152,6 +160,10 @@ for name in sys.argv[1].split(","):
         assert {lay.axis for lay in moments.values()} == {"model", "data"}
         mesh = make_mesh(devices=["cpu"] * 2)
         assert len(shard_batch(torch.zeros(4, 1), mesh)) == 2
+    if name == "cotr_tpu_torch":
+        from cotr_tpu_torch import COTRConfig, build_model
+        model = build_model(COTRConfig(enc_layers=1, dec_layers=1))
+        assert type(model).__name__ == "COTRModel"
     if name == "cotr_tpu_torch.tools.dryrun_multichip":
         assert mod.uses_tp(4) and not mod.uses_tp(2)
     if name == "cotr_tpu_torch.models.torch_convert":
@@ -314,3 +326,26 @@ def test_tool_modules_import_and_run_with_jax_and_image_libs_blocked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for module in _TOOL_MODULES:
         assert f"imported {module}" in proc.stdout
+
+
+#: the package and each subpackage, now that their __init__ files export
+#: the JAX package's names: blocked the same way and without PIL, imageio,
+#: h5py and triton (the kernels import triton, if ever, when they launch),
+#: and with no process started (no nvcc or host compiler runs on import);
+#: the top-level exports build a model
+_PACKAGES = ["cotr_tpu_torch", "cotr_tpu_torch.models",
+             "cotr_tpu_torch.training", "cotr_tpu_torch.data",
+             "cotr_tpu_torch.ops", "cotr_tpu_torch.utils",
+             "cotr_tpu_torch.inference", "cotr_tpu_torch.geometry",
+             "cotr_tpu_torch.parallel"]
+
+
+def test_packages_import_with_jax_image_libs_and_triton_blocked():
+    proc = _run_blocked(",".join(_PACKAGES), "--no-image-libs",
+                        "--no-triton", "--no-build")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for module in _PACKAGES:
+        assert f"imported {module}" in proc.stdout
+    proc = _run_blocked("triton", "--no-triton")
+    assert proc.returncode != 0
+    assert "blocked for this test" in proc.stderr
