@@ -12,11 +12,14 @@ Phases (any failure exits non-zero):
    (csrc/squads.cpp) and the MegaDepth data path's loops (csrc/depth.cpp),
    the last two with the host C++ compiler; the native squad formation
    must equal the numpy scan exactly on 10,000 generated tasks;
-3. the kernels (the tile kernel and the row kernel behind one wrapper) vs
-   their plain version on the card at the main paths' shapes,
-   float32 and bfloat16, with times beside the plain version's, one
-   ``F.scaled_dot_product_attention`` call's (a yardstick only; the port
-   never calls it) and the card's bound;
+3. the kernels (the tile kernels, bfloat16 on wgmma and float32 on
+   mma.sync, and the row kernel, behind one wrapper) vs their plain version
+   on the card at the main paths' shapes, float32 and bfloat16, with times
+   beside the plain version's, one ``F.scaled_dot_product_attention``
+   call's (a yardstick only; the port never calls it), the card's bound and
+   the floor of one exponential a logit; in bfloat16 also the kernel's and
+   SDPA's device time from a CUDA-graph replay, without the host's cost of
+   a call;
 4. the squad engine's two windowed crops vs the full-image crop on the
    card;
 5. the flagship model at full width (6+6 layers, float32) forward on the
@@ -142,7 +145,9 @@ Phases (any failure exits non-zero):
     trace naming the attention kernel, and ``warp_by_flow(B, corr_a)``
     closer to A than B is; then ``ops.crop_and_resize`` on the card
     against the CPU (64 boxes of a 768 x 1024 image, out 256);
-27. one JSON line describing each kernel, then the device line last.
+27. one JSON line describing each kernel (float32, the tile and row
+    kernels; the bfloat16 tile kernel; the bfloat16 row kernel), each with
+    its own launches on the paths, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -207,6 +212,7 @@ CROP_AND_RESIZE_BOXES = 64
 SHAPES = [("encoder self-attention", 2, 512),
           ("refinement encoder", 256, 512),
           ("dense decode chunk", 4, 8192),
+          ("dense decode, batch of 8 chunks", 8, 8192),
           ("refinement decode", 256, 1),
           ("ragged query tile", 2, 600),
           ("squad encoder", 128, 512),
@@ -372,6 +378,33 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in a
+    CUDA graph, the graph replayed between CUDA events, the time over the
+    calls. The host's cost of a call (a wrapper, the launch) is not in it,
+    as it is in ``time_ms``'s back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    replays = 5
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def attention_bound_ms(b, lq, s, h, hd, dtype) -> tuple:
@@ -583,7 +616,8 @@ def phase_crops(sampling) -> list:
 def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
     """The kernel at (B, Lq, S) in ``dtype`` against its plain version
     (raises past ``KERNEL_TOL``), and its times beside the plain version's,
-    SDPA's and the bound."""
+    SDPA's, the bound and the exp floor; in bfloat16 the kernel's and SDPA's
+    graph-replay device times too."""
     h, hd = 8, 32
     td = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(b * 131 + lq)
@@ -604,6 +638,15 @@ def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+    # bfloat16 only: SDPA's float32 path keeps its logits, 2 GB a call at
+    # (256, 512), and a graph holds every call's
+    graph = {}
+    if dtype == "bfloat16":
+        graph = dict(
+            graph_ms=graph_ms(
+                lambda: attention.flash_cross_attention(q, k, v), 10),
+            graph_library_ms=graph_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), 10))
     bound_ms, bound_by = attention_bound_ms(b, lq, s, h, hd, dtype)
     variant = attention.choose_kernel(lq, s, td)
     # the tile kernel at each height it is built for (at Lq = 1 too, where
@@ -616,14 +659,17 @@ def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
                # the softmax sets
                exp_floor_ms=b * h * lq * s / exp_rate * 1e3,
                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               **graph)
     log(f"[kernel] {label:24s} B={b:<4d} Lq={lq:<5d} {dtype:8s} "
         f"{variant:4s} err {err:.2e}  kernel {ms:.4f} ms  "
         f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  "
         f"bound {bound_ms:.4f} ms ({bound_by})  "
         f"exp floor {row['exp_floor_ms']:.4f} ms"
         + "".join(f"  tile of {n} rows {t:.4f} ms"
-                  for n, t in by_rows.items()))
+                  for n, t in by_rows.items())
+        + (f"  graph replay: kernel {graph['graph_ms']:.4f} ms, sdpa "
+           f"{graph['graph_library_ms']:.4f} ms" if graph else ""))
     return row
 
 
@@ -3173,7 +3219,38 @@ def merged_shape_counts(records) -> list:
             for (b, lq, s, dtype), n in sorted(total.items())]
 
 
+def kernel_entry(name, keep, timed, rows, shape_counts, paths) -> dict:
+    """The ``kernels`` line's entry of the kernel whose shapes ``keep``
+    selects: its launches on the paths (raises if none), its largest error
+    at its checked shapes, its times at (B, Lq) = ``timed``. The exp floor
+    stays in the log and in ``chip_smoke.json``: it is computed, not
+    measured."""
+    counts = [r for r in shape_counts if keep(r)]
+    launches = sum(r["launches"] for r in counts)
+    if launches < 1:
+        raise AssertionError(f"the paths launched no {name} kernel")
+    shapes = [{k: x for k, x in r.items() if k != "exp_floor_ms"}
+              for r in rows if keep(r)]
+    main_row = next(r for r in shapes if (r["b"], r["lq"]) == timed)
+    return dict(
+        name=name, route="cuda", source="cotr_tpu_torch/csrc/attention.cu",
+        replaces="cotr_tpu/ops/pallas_attention.py:70",
+        dtype=main_row["dtype"],
+        launches=launches, shape_counts=counts,
+        launches_by_path={k: sum(r["launches"] for r in p["shape_counts"]
+                                 if keep(r)) for k, p in paths.items()},
+        max_abs_err=max(r["max_abs_err"] for r in shapes),
+        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        library_ms=main_row["library_ms"],
+        **{k: main_row[k] for k in ("graph_ms", "graph_library_ms")
+           if k in main_row},
+        timed_at=f"B={timed[0]} Lq={timed[1]} S={main_row['s']} H=8 hd=32 "
+                 f"{main_row['dtype']}", shapes=shapes)
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3396,7 +3473,6 @@ def main() -> int:
                 for tag, run in triage_multipair.items()},
              f"triage_guided twin, 1 + {TRIAGE_GUIDED_ROUNDS} rounds":
                  triage_guided}
-    launches = sum(p["launches"] for p in paths.values())
     shape_counts = merged_shape_counts(paths.values())
     # the generated-training stages' validation shapes: launched in their
     # subprocesses, so checked here without a count
@@ -3408,21 +3484,22 @@ def main() -> int:
     rows += phase_path_shapes(attention, shape_counts + subprocess_shapes,
                               rows)
 
-    main_row = next(r for r in rows if r["shape"] == "dense decode chunk"
-                    and r["dtype"] == "float32")
-    kernels = [dict(
-        name="flash_cross_attention", route="cuda",
-        source="cotr_tpu_torch/csrc/attention.cu",
-        replaces="cotr_tpu/ops/pallas_attention.py:70",
-        launches=launches, shape_counts=shape_counts,
-        launches_by_path={k: p["launches"] for k, p in paths.items()},
-        max_abs_err=max(r["max_abs_err"] for r in rows
-                        if r["dtype"] == "float32"),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"],
-        timed_at="B=4 Lq=8192 S=512 H=8 hd=32 float32",
-        shapes=rows)]
+    # one entry a kernel, each with its own launches (they sum to the
+    # paths'): float32 (the tile and row kernels), the bfloat16 tile
+    # kernel (wgmma) and the bfloat16 row kernel
+    def kind(r):
+        return r["dtype"], attention.choose_kernel(
+            r["lq"], r["s"], getattr(torch, r["dtype"]))
+
+    kernels = [
+        kernel_entry("flash_cross_attention", lambda r: r["dtype"] ==
+                     "float32", (4, 8192), rows, shape_counts, paths),
+        kernel_entry("flash_cross_attention, bfloat16 tile", lambda r:
+                     kind(r) == ("bfloat16", "tile"), (8, 8192), rows,
+                     shape_counts, paths),
+        kernel_entry("flash_cross_attention, bfloat16 row", lambda r:
+                     kind(r) == ("bfloat16", "row"), (256, 1), rows,
+                     shape_counts, paths)]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build=build, crops=crops, forward=forward,
@@ -3444,7 +3521,7 @@ def main() -> int:
                        bench_loader=bench_loader,
                        generated_training=gen_training, nn_dist=nn_dist,
                        goldens=goldens, side_by_side=side_by_side,
-                       kernels=kernels),
+                       kernel_shapes=rows, kernels=kernels),
                   f, indent=1)
     log(f"[serve] wall {serve['wall_s']:.3f} s; [dense-pass] "
         f"{dense_record['phase_s']:.2f} s; [grouped] wall "
@@ -3480,6 +3557,8 @@ def main() -> int:
                     for tag, run in bench_loader.items())
         + f"; [generated-training] {gen_training['wall_s']:.1f} s; "
         f"[nn-dist] {nn_dist['wall_s']:.2f} s for {nn_dist['cells']} cells")
+    log(f"[chip_smoke] {time.perf_counter() - started:.1f} s from its "
+        f"start to its last line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,41 +9,78 @@
 // Pallas body does) and fp32 accumulation. q (B, Lq, H, hd); k, v
 // (B, S, H, hd); out (B, Lq, H, hd); all read through their strides.
 //
-// Two kernels, chosen by the wrapper from Lq.
+// Three kernels, chosen by the wrapper from Lq and the dtype.
 //
-// attention_kernel_tile (many query rows: encoder Lq = 512, dense decode
-// Lq = 8,192). What bounds it: operations, and among them not only the
-// products. At hd = 32 a logit costs 128 tensor-core operations (64 for
-// q k^T, 64 for p v) and one exp. An SM does about 4,096 dense bf16
-// operations a clock but only 16 exp, so in bfloat16 the softmax, not the
-// two products, sets the pace by about 2x. mma.sync tiles are therefore
-// enough there: wgmma and TMA would speed up the part that is not the limit.
-// In float32 the three TF32 products of the split cost six times the
-// tensor-core time of the bf16 product, and there the products set the pace.
-// What the design does:
+// attention_kernel_tile_bf16 (bfloat16, Lq above 3: the encoders, Lq = 512,
+// the dense decode, Lq = 8,192 a chunk, the squad decodes). What bounds it
+// on this card is the largest of three floors: the bytes (q, k, v read
+// once, out written once: 0.080 ms at (B, Lq) = (256, 512)); the two
+// products (128 tensor-core operations a logit at hd = 32: 0.035 ms at
+// (8, 8192)); and the exponentials: an SM evaluates 16 a clock, so one exp
+// a logit costs 0.064 ms at (8, 8192) on 132 SMs at 1.98 GHz, more than the
+// products, and two a logit would double that. What the design does:
+//   * one exp a logit for S up to 512, the S of every main path: a block of
+//     two warpgroups holds a head's K and V (up to 512 keys, 64 KB) in
+//     shared memory, and each warpgroup computes the fp32 logits of 64 query
+//     rows against its 256 of the keys and keeps them in registers, 128 a
+//     thread. It takes them as two halves of 128 keys (wgmma m64n128k16, q
+//     and K read from shared memory) and exponentiates the first half
+//     against that half's own maximum while the tensor cores compute the
+//     second. The four halves' maxima and sums meet in one exchange through
+//     shared memory, which gives the row's maximum m and sum l before the
+//     first probability is formed, and each half's factor 2^(m_h - m) / l.
+//     The normalised probabilities e * factor are rounded to bf16, as the
+//     Pallas body rounds them, straight into the A fragments of p v (wgmma
+//     m64n32k16, A from registers, V from shared memory as a transposed B);
+//     the first half's p v runs while the second half's probabilities are
+//     packed, and the two warpgroups' partial outputs are added in fp32
+//     through shared memory;
+//   * K, V and q are staged with cp.async, 16 bytes a thread, into the
+//     64-byte swizzled layout that the wgmma descriptors read. A block walks
+//     an even share of the (b, h, row tile) sequence, one block an SM, and
+//     stages the next step's q (and, at a new head, its K and V into the
+//     other buffer) while it computes this one;
+//   * the logits are scaled after the product: q / sqrt(32) is not a bf16
+//     number. Keys past S are zero-filled and get probability 0; rows past
+//     Lq are computed on zeros and never stored;
+//   * S above 512 (no main path): the same kernel walks the keys in chunks
+//     of 512 twice, for each row's maximum and sum (rescaled chunk by
+//     chunk), then for the probabilities: two exps a logit there.
+// What sets its pace as built (profile_attention.py, SM clocks of a 64-row
+// tile on the H100, about 6,000 at (8, 8192)): its phases follow each other
+// behind two barriers, since a tile's fp32 logits fill the registers and no
+// second tile can be in flight. The maxima and exps take about 2,800 (the
+// exps' floor at 16 a clock: 2,048), the factors and the packing to bf16
+// about 1,550, the first half's q k^T about 400, the partial outputs' sum
+// and store about 500, and the step's staging and wait about 420.
+// tile_rows (64 or 128) is the query rows a block takes a step: one or two
+// wgmma tiles of 64 rows against the staged keys.
+//
+// attention_kernel_tile (float32, Lq above 3). What bounds it: the
+// products. float32 keeps seven digits on TF32 tensor cores by splitting
+// every operand, and its three TF32 products cost six times the
+// tensor-core time of one bf16 product. What the design does:
 //   * a warp owns 16 query rows, 4 or 8 warps a block share the K and V
 //     tiles (64 keys) that stream through shared memory, fetched into
 //     registers one tile ahead;
 //   * both products run on the tensor cores (mma.sync), and the logits and
 //     probabilities never leave the registers: the accumulator tiles of
 //     q k^T are, after the exp, the A operand of p v (WarpTile);
-//   * two passes over the keys instead of an online rescaled sum. The TPU
-//     kernel rounds the NORMALISED probabilities to bf16 before p v, so the
-//     row's maximum and sum must be known before the first probability is
-//     formed: pass 1 finds them, pass 2 recomputes the logits (cheap on the
-//     tensor cores) and multiplies with V. In float32 there is no rounding
-//     to reproduce, so pass 1 only places the maximum, from one TF32 product,
-//     and pass 2 sums as it goes and divides at the end;
-//   * float32 keeps seven digits on TF32 tensor cores by splitting every
-//     operand into hi = tf32(x) and lo = tf32(x - hi) and summing the three
-//     products lo*hi, hi*lo, hi*hi, small terms first. One TF32 product alone
-//     errs by 1e-3. The tensor cores add into their accumulator with
-//     truncation, so long sums are cut into key tiles whose partial sums are
-//     added on the fp32 pipes;
-//   * bfloat16 scales the fp32 logits after the product and not q before it:
-//     q / sqrt(32) is not a bf16 number;
+//   * two passes over the keys instead of an online rescaled sum: pass 1
+//     places each row's maximum from one TF32 product, pass 2 recomputes
+//     the logits, sums exp2 as it goes, multiplies with V and divides at
+//     the end (float32 has no rounding of the probabilities to reproduce);
+//   * the split: every operand becomes hi = tf32(x) and lo = tf32(x - hi),
+//     and the three products lo*hi, hi*lo, hi*hi are summed small terms
+//     first. One TF32 product alone errs by 1e-3. The tensor cores add into
+//     their accumulator with truncation, so long sums are cut into key tiles
+//     whose partial sums are added on the fp32 pipes;
 //   * keys past S are zero-filled and get probability 0; rows past Lq are
 //     computed on zeros and never stored; any S is taken.
+// Its template keeps the branches of the bfloat16 mma.sync kernel that
+// attention_kernel_tile_bf16 replaced; only float32 instantiates it.
+// Deleting them (float32's machine code stays as it is) is the first step
+// of the float32 redesign.
 //
 // attention_kernel_row (Lq of a few rows: the refinement decode, Lq = 1 at a
 // batch of up to 256). What bounds it: bytes, reading K and V once. No
@@ -135,17 +172,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// c (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16), two values a
-// register: a[0] = A(g, 2t..), a[1] = A(g + 8, 2t..), a[2] = A(g, 2t + 8..),
-// a[3] = A(g + 8, 2t + 8..); b0 = B(2t.., g), b1 = B(2t + 8.., g); c as above.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -277,87 +303,6 @@ template <> struct WarpTile<float> {
                         acc[2][2 * r] * norm, acc[3][2 * r] * norm);
     at[1] = make_float4(acc[0][2 * r + 1] * norm, acc[1][2 * r + 1] * norm,
                         acc[2][2 * r + 1] * norm, acc[3][2 * r + 1] * norm);
-  }
-};
-
-// bfloat16: one product each, the fp32 logits scaled after the product
-// (q / sqrt(32) is not a bf16 number). Two logits tiles side by side are
-// already laid out as the A operand of the 16-key p v step; V's fragments
-// come transposed out of shared memory through ldmatrix.
-template <> struct WarpTile<__nv_bfloat16> {
-  static constexpr int copies = 1;
-  static constexpr int key_tile = 64;
-  static constexpr int ldk = 32;  // 16-byte loads of K rows: no padding wanted
-  static constexpr int ldv = 40;  // ldmatrix: rows 80 bytes apart
-  static constexpr bool kScaleQ = false;
-  uint32_t qf[2][4];
-
-  __device__ __forceinline__ void load_q(const __nv_bfloat16* q, int64_t stride,
-                                         int valid, float, int g, int t) {
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // as in float32, the head dimension is re-ordered: a thread's
-        // share of a key row is dimensions 8t .. 8t + 7, one 16-byte load
-        const int r = g + (i & 1) * 8;
-        const int c = 8 * t + 4 * ks + 2 * (i >> 1);
-        qf[ks][i] = r < valid ? *reinterpret_cast<const uint32_t*>(
-                                    q + (int64_t)r * stride + c)
-                              : 0u;
-      }
-  }
-  __device__ __forceinline__ void scores(float (&sc)[2][4],
-                                         const __nv_bfloat16* ks_, int k0,
-                                         int g, int t) const {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.0f;
-      const uint4 b = *reinterpret_cast<const uint4*>(
-          ks_ + (k0 + 8 * j + g) * ldk + 8 * t);
-      mma_bf16(sc[j], qf[0], b.x, b.y);
-      mma_bf16(sc[j], qf[1], b.z, b.w);
-    }
-  }
-  __device__ __forceinline__ void scores_coarse(float (&sc)[2][4],
-                                                const __nv_bfloat16* ks_,
-                                                int k0, int g, int t) const {
-    scores(sc, ks_, k0, g, t);
-  }
-  __device__ __forceinline__ void pv(float (&acc)[4][4], const float (&p)[2][4],
-                                     const __nv_bfloat16* vs_, int k0, int,
-                                     int) const {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[0][0], p[0][1]);
-    a[1] = pack_bf16(p[0][2], p[0][3]);
-    a[2] = pack_bf16(p[1][0], p[1][1]);
-    a[3] = pack_bf16(p[1][2], p[1][3]);
-    // four 8 x 8 blocks of V a call: keys k0.. and k0 + 8.. of two output
-    // tiles; lanes 0-7, 8-15, 16-23, 24-31 name the rows of one block each
-    const int lane = threadIdx.x % 32;
-    const __nv_bfloat16* row =
-        vs_ + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldv + (lane >> 4) * 8;
-#pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
-      uint32_t b[4];
-      const uint32_t addr =
-          (uint32_t)__cvta_generic_to_shared(row + dp * 16);
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-          : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-          : "r"(addr));
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-  static __device__ __forceinline__ void store_out(__nv_bfloat16* orow,
-                                                   const float (&acc)[4][4],
-                                                   int r, float norm, int t) {
-#pragma unroll
-    for (int d = 0; d < 4; ++d)
-      *reinterpret_cast<uint32_t*>(orow + 8 * d + 2 * t) =
-          pack_bf16(acc[d][2 * r] * norm, acc[d][2 * r + 1] * norm);
   }
 };
 
@@ -602,6 +547,655 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bfloat16 tile kernel (wgmma)
+
+constexpr int kWgThreads = 128;                  // a warpgroup
+constexpr int kWgs = 2;                          // warpgroups a block
+constexpr int kWgKeys = 256;                     // keys a warpgroup holds
+constexpr int kOnChipKeys = kWgs * kWgKeys;      // keys a block holds: 512
+constexpr int kLogits = kWgKeys / 2;             // logits a thread holds
+constexpr int kHalf = kLogits / 2;               // of them, a half's: 64
+constexpr int kPvSteps = kWgKeys / 16;           // k16 steps of p v
+constexpr int kWgmmaRows = 64;                   // query rows of one wgmma tile
+constexpr int kRowBytes = kHeadDim * 2;          // one bf16 row of q, k or v
+constexpr int kKeyBytes = kOnChipKeys * kRowBytes;  // K (or V) of 512 keys
+constexpr int kPartLd = 40;  // floats a row of a partial output: float2
+                             // stores of 8 rows free of bank conflicts
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// byte offset of 16-byte chunk c (0..3) of row r in a tile of 64-byte rows
+// under the 64-byte swizzle (chunk bits 4-5 XOR address bits 7-8) that the
+// descriptors below name; a tile starts 512-byte aligned
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return r * kRowBytes + ((c ^ ((r >> 1) & 3)) << 4);
+}
+// 16 bytes from global to shared memory, or 16 zeros when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// this thread's copies but the last kPending groups landed and made visible
+// to wgmma (the async proxy), then every thread's
+template <int kPending>
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+}
+
+// wgmma shared-memory descriptor of a tile of 64-byte rows, 64-byte swizzle:
+// start address >> 4 (bits 0-13), leading byte offset 16 (unused: one
+// swizzle atom spans the whole k16 or n32 extent), stride byte offset 512
+// (eight rows, from one core-matrix group to the next), layout 2 = B64
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// until at most kPending committed groups of products are in flight
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(kPending)
+               : "memory");
+}
+// keep registers that an issued wgmma reads or writes where they are until
+// it has completed: the compiler sees the asm statement, not the hardware
+template <int n>
+__device__ __forceinline__ void pin(float (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int n>
+__device__ __forceinline__ void pin(uint32_t (&r)[n][4]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// d (64 x 128, fp32) (+)= a (64 x 16) b (16 x 128), a and b bf16 in shared
+// memory, both K-major (the head dimension contiguous). Thread x of the
+// warpgroup holds rows 16 (x / 32) + (x % 32) / 4 and that + 8: d[4i],
+// d[4i + 1] are columns 8i + 2 (x % 4) and + 1 of the first row, d[4i + 2],
+// d[4i + 3] the same columns of the second.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 32, fp32) (+)= a (64 x 16, bf16 from registers) b (16 x 32, bf16 in
+// shared memory, MN-major: the head dimension contiguous, so transposed).
+// a's fragment is that of the m16n8k16 mma: a[0] = A(g, 2t..), a[1] =
+// A(g + 8, 2t..), a[2] = A(g, 2t + 8..), a[3] = A(g + 8, 2t + 8..) of the
+// warp's 16 rows; d is laid out as in wgmma_qk.
+__device__ __forceinline__ void wgmma_pv(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ float quad_max(float x) {  // over a row's 4 threads
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+// the maximum of a row's first n entries
+__device__ __forceinline__ float first_max(const float* at, int n) {
+  float m = at[0];
+  for (int w = 1; w < n; ++w) m = fmaxf(m, at[w]);
+  return m;
+}
+
+// rows [0, rows) of one (batch, head) slice of q, k or v into a swizzled
+// tile in shared memory, 16 bytes a copy; rows at or past `valid` are zeros
+__device__ __forceinline__ void stage_rows(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           int64_t stride, int rows,
+                                           int valid) {
+  for (int i = threadIdx.x; i < rows * 4; i += kWgs * kWgThreads) {
+    const int r = i >> 2;
+    const int c = i & 3;
+    const bool ok = r < valid;
+    cp_async16(dst + sw64(r, c), ok ? src + r * stride + c * 8 : src, ok);
+  }
+}
+
+// The block's shared memory, as byte offsets from its base, which is
+// rounded up to 1,024 bytes (the swizzle reads address bits 7 and 8)
+template <int kRows>
+struct Bf16Layout {
+  static constexpr int kv = 0;                            // 2 x (K, V)
+  static constexpr int q = kv + 2 * 2 * kKeyBytes;        // 2 x q rows
+  static constexpr int part = q + 2 * kRows * kRowBytes;  // partial outputs
+  static constexpr int rmax = part + kWgs * kWgmmaRows * kPartLd * 4;
+  static constexpr int rsum = rmax + kWgmmaRows * 2 * kWgs * 4;
+  static constexpr int bytes = rsum + kWgmmaRows * 2 * kWgs * 4 + 1024;
+};
+
+// What a thread is within its block
+struct Bf16Thread {
+  int wg;     // warpgroup: it holds keys [256 wg, 256 wg + 256) of a chunk
+  int r0;     // its rows of a 64-row tile: r0 and r0 + 8
+  int t;      // lane % 4: its columns 8i + 2t and + 1 of each row
+  float c;    // scale * log2(e): logits go through exp2
+  float* part;
+  float* rmax;  // 64 rows x 2 kWgs: the halves' row maxima
+  float* rsum;  // and row sums
+};
+
+// A half of a thread's logits: sc[64 h .. 64 h + 63], the keys
+// [128 h, 128 h + 128) of its warpgroup's, laid out as one accumulator of
+// 64 x 128 (and the two halves side by side as one of 64 x 256)
+template <int h>
+__device__ __forceinline__ float (&half_of(float (&sc)[kLogits]))[kHalf] {
+  return *reinterpret_cast<float(*)[kHalf]>(sc + h * kHalf);
+}
+// Issue (not wait for) the logits of a 64-row tile (q at qa) against one
+// half of this warpgroup's keys of the staged chunk (K at ka), as a group of
+// products of its own.
+template <int h>
+__device__ __forceinline__ void bf16_qk(float (&sc)[kLogits], uint32_t qa,
+                                        uint32_t ka, const Bf16Thread& th) {
+  const uint32_t kw = ka + (th.wg * kWgKeys + h * kWgKeys / 2) * kRowBytes;
+  wgmma_fence();
+  wgmma_qk(half_of<h>(sc), desc_sw64(qa), desc_sw64(kw), 0);  // dims 0-15
+  wgmma_qk(half_of<h>(sc), desc_sw64(qa + 32), desc_sw64(kw + 32), 1);
+  wgmma_commit();
+}
+// Issue o (+)= p v over one half of this warpgroup's keys (the first half
+// overwrites o unless accumulate), V's rows at va. An accumulator tile's
+// columns 2t, 2t + 1 of rows g and g + 8, two tiles side by side, are the A
+// fragment of a k16 step, so p comes straight from the logits' registers.
+template <int h>
+__device__ __forceinline__ void bf16_pv(float (&o)[16],
+                                        uint32_t (&p)[kPvSteps][4],
+                                        uint32_t va, bool accumulate,
+                                        const Bf16Thread& th) {
+  const uint32_t vw = va + th.wg * kWgKeys * kRowBytes;
+  wgmma_fence();
+#pragma unroll
+  for (int j = h * kPvSteps / 2; j < (h + 1) * kPvSteps / 2; ++j)
+    wgmma_pv(o, p[j], desc_sw64(vw + j * 16 * kRowBytes), accumulate || j);
+  wgmma_commit();
+}
+// keys at or past `keys` (of the chunk) get the logit -inf, in half h
+template <int h>
+__device__ __forceinline__ void bf16_mask(float (&sc)[kLogits], int keys,
+                                          const Bf16Thread& th) {
+  const int key0 = th.wg * kWgKeys + h * kWgKeys / 2;
+  if (key0 + kWgKeys / 2 <= keys) return;
+#pragma unroll
+  for (int i = h * kHalf; i < (h + 1) * kHalf; ++i)
+    if (th.wg * kWgKeys + 8 * (i / 4) + 2 * th.t + (i & 1) >= keys)
+      sc[i] = -INFINITY;
+}
+// the two rows' maxima over half h, from m0 and m1 on
+template <int h>
+__device__ __forceinline__ void bf16_max(const float (&sc)[kLogits],
+                                         float& m0, float& m1) {
+#pragma unroll
+  for (int i = h * kHalf / 4; i < (h + 1) * kHalf / 4; ++i) {
+    m0 = fmaxf(m0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    m1 = fmaxf(m1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+}
+// e = 2^(logit c - mc) of each row in half h in place: the one
+// exponential a logit; the rows' sums of e over the half
+template <int h>
+__device__ __forceinline__ void bf16_exp(float (&sc)[kLogits], float c,
+                                         float mc0, float mc1, float& l0,
+                                         float& l1) {
+  float a = 0.0f, b = 0.0f;
+#pragma unroll
+  for (int i = h * kHalf / 4; i < (h + 1) * kHalf / 4; ++i) {
+    sc[4 * i] = exp2_approx(fmaf(sc[4 * i], c, -mc0));
+    sc[4 * i + 1] = exp2_approx(fmaf(sc[4 * i + 1], c, -mc0));
+    sc[4 * i + 2] = exp2_approx(fmaf(sc[4 * i + 2], c, -mc1));
+    sc[4 * i + 3] = exp2_approx(fmaf(sc[4 * i + 3], c, -mc1));
+    a += sc[4 * i] + sc[4 * i + 1];
+    b += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+  l0 = quad_sum(a);
+  l1 = quad_sum(b);
+}
+// the probabilities e * f of each row in half h, rounded to bf16, as the A
+// fragments of p v
+template <int h>
+__device__ __forceinline__ void bf16_pack(uint32_t (&p)[kPvSteps][4],
+                                          const float (&e)[kLogits],
+                                          float f0, float f1) {
+#pragma unroll
+  for (int j = h * kPvSteps / 2; j < (h + 1) * kPvSteps / 2; ++j) {
+    p[j][0] = pack_bf16(e[8 * j] * f0, e[8 * j + 1] * f0);
+    p[j][1] = pack_bf16(e[8 * j + 2] * f1, e[8 * j + 3] * f1);
+    p[j][2] = pack_bf16(e[8 * j + 4] * f0, e[8 * j + 5] * f0);
+    p[j][3] = pack_bf16(e[8 * j + 6] * f1, e[8 * j + 7] * f1);
+  }
+}
+// m c, or 0 where m is -inf (a half whose keys are all past S), so that the
+// half's exponentials come out 2^-inf = 0 and not NaN
+__device__ __forceinline__ float max_c(float m, float c) {
+  return m == -INFINITY ? 0.0f : m * c;
+}
+
+// this warpgroup's o into its partial tile
+__device__ __forceinline__ void bf16_part(const float (&o)[16],
+                                          const Bf16Thread& th) {
+  float* at = th.part + (th.wg * kWgmmaRows + th.r0) * kPartLd + 2 * th.t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    *reinterpret_cast<float2*>(at + 8 * i) = make_float2(o[4 * i], o[4 * i + 1]);
+    *reinterpret_cast<float2*>(at + 8 * kPartLd + 8 * i) =
+        make_float2(o[4 * i + 2], o[4 * i + 3]);
+  }
+}
+
+// the first n warpgroups' partial tiles added in fp32 (after a barrier),
+// rows below `rows` rounded to bf16 and stored, 8 values (16 bytes) a thread
+__device__ __forceinline__ void bf16_store(__nv_bfloat16* out, int64_t ol,
+                                           int rows, int n,
+                                           const Bf16Thread& th) {
+  static_assert(kWgmmaRows * kHeadDim == 8 * kWgs * kWgThreads,
+                "a thread stores 8 values");
+  const int r = threadIdx.x / 4;
+  const int c = threadIdx.x % 4 * 8;
+  if (r >= rows) return;
+  const float* at = th.part + r * kPartLd + c;
+  float4 lo = *reinterpret_cast<const float4*>(at);
+  float4 hi = *reinterpret_cast<const float4*>(at + 4);
+  for (int w = 1; w < n; ++w) {
+    const float* x = at + w * kWgmmaRows * kPartLd;
+    const float4 xl = *reinterpret_cast<const float4*>(x);
+    const float4 xh = *reinterpret_cast<const float4*>(x + 4);
+    lo.x += xl.x; lo.y += xl.y; lo.z += xl.z; lo.w += xl.w;
+    hi.x += xh.x; hi.y += xh.y; hi.z += xh.z; hi.w += xh.w;
+  }
+  *reinterpret_cast<uint4*>(out + r * ol + c) =
+      make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                 pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+}
+
+// Phase clocks: profile_attention.py builds this file with
+// COTR_PROFILE_PHASES defined and its own definitions of these, which read
+// clock64() at the phase boundaries of bf16_tile_staged and of the bfloat16
+// kernel's step loop. In every other build they are empty.
+#ifndef COTR_PROFILE_PHASES
+#define PHASE_CLOCK_START()
+#define PHASE_CLOCK(i)
+#define PHASE_CLOCKS_CLEAR()
+#define PHASE_CLOCKS_WRITE()
+#endif
+
+// One 64-row tile whose keys, at most 512, are all staged: each logit is
+// exponentiated once. A warpgroup's keys go in two halves of 128, each with
+// its own maximum, so that the second half's q k^T runs on the tensor cores
+// while the first half's exps are taken; the four halves' maxima and sums
+// meet in one exchange, which gives each half's factor 2^(its max - the
+// row's max) / the row's sum. The first half's p v runs while the second
+// half's probabilities are packed. Two barriers: the halves' maxima and
+// sums, the partial outputs.
+__device__ __forceinline__ void bf16_tile_staged(uint32_t qa, uint32_t ka,
+                                                 uint32_t va, int keys,
+                                                 __nv_bfloat16* out,
+                                                 int64_t ol, int rows,
+                                                 const Bf16Thread& th) {
+  constexpr int kHalves = 2 * kWgs;  // a row's
+  static_assert(kHalves == 4, "a row's halves are read as a float4");
+  const int n = (keys + kWgKeys - 1) / kWgKeys;  // warpgroups holding keys
+  const bool live = th.wg < n;
+  float sc[kLogits];
+  PHASE_CLOCK_START();
+  if (live) {
+    bf16_qk<0>(sc, qa, ka, th);
+    bf16_qk<1>(sc, qa, ka, th);
+    float m[2][2], l[2][2];  // [half][row]
+    wgmma_wait<1>();
+    pin(half_of<0>(sc));
+    PHASE_CLOCK(0);
+    bf16_mask<0>(sc, keys, th);
+    m[0][0] = m[0][1] = -INFINITY;
+    bf16_max<0>(sc, m[0][0], m[0][1]);
+    bf16_exp<0>(sc, th.c, max_c(m[0][0], th.c), max_c(m[0][1], th.c),
+                l[0][0], l[0][1]);
+    PHASE_CLOCK(1);
+    wgmma_wait<0>();
+    pin(half_of<1>(sc));
+    PHASE_CLOCK(2);
+    bf16_mask<1>(sc, keys, th);
+    m[1][0] = m[1][1] = -INFINITY;
+    bf16_max<1>(sc, m[1][0], m[1][1]);
+    bf16_exp<1>(sc, th.c, max_c(m[1][0], th.c), max_c(m[1][1], th.c),
+                l[1][0], l[1][1]);
+    if (th.t == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          th.rmax[(th.r0 + 8 * r) * kHalves + 2 * th.wg + hh] = m[hh][r];
+          th.rsum[(th.r0 + 8 * r) * kHalves + 2 * th.wg + hh] = l[hh][r];
+        }
+    }
+  }
+  PHASE_CLOCK(3);
+  __syncthreads();
+  PHASE_CLOCK(4);
+  if (live) {
+    // each row's maximum over the halves held (finite: key 0 is a key of
+    // every row), its sum, and this warpgroup's halves' factors
+    float f[2][2];  // [half][row]
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int at = (th.r0 + 8 * r) * kHalves;
+      const float4 mh = *reinterpret_cast<const float4*>(th.rmax + at);
+      const float4 lh = *reinterpret_cast<const float4*>(th.rsum + at);
+      // a warpgroup past S wrote nothing: its halves count as -inf and 0
+      const bool two = n > 1;
+      const float m = fmaxf(fmaxf(mh.x, mh.y),
+                            two ? fmaxf(mh.z, mh.w) : -INFINITY);
+      const float g0 = exp2_approx((mh.x - m) * th.c);
+      const float g1 = exp2_approx((mh.y - m) * th.c);
+      const float g2 = two ? exp2_approx((mh.z - m) * th.c) : 0.0f;
+      const float g3 = two ? exp2_approx((mh.w - m) * th.c) : 0.0f;
+      const float inv = 1.0f / ((lh.x * g0 + lh.y * g1) +
+                                (two ? lh.z * g2 + lh.w * g3 : 0.0f));
+      f[0][r] = (th.wg == 0 ? g0 : g2) * inv;
+      f[1][r] = (th.wg == 0 ? g1 : g3) * inv;
+    }
+    PHASE_CLOCK(5);
+    uint32_t p[kPvSteps][4];
+    float o[16];
+    bf16_pack<0>(p, sc, f[0][0], f[0][1]);
+    bf16_pv<0>(o, p, va, false, th);
+    bf16_pack<1>(p, sc, f[1][0], f[1][1]);
+    bf16_pv<1>(o, p, va, true, th);
+    PHASE_CLOCK(6);
+    wgmma_wait<0>();
+    pin(o);
+    pin(p);
+    PHASE_CLOCK(7);
+    bf16_part(o, th);
+    PHASE_CLOCK(8);
+  }
+  __syncthreads();
+  PHASE_CLOCK(9);
+  bf16_store(out, ol, rows, n, th);
+  PHASE_CLOCK(10);
+}
+
+// One 64-row tile against more keys than a block holds: pass 1 walks the
+// chunks of 512 keys for each row's maximum and sum over each warpgroup's
+// keys, rescaling the sum as the maximum grows; pass 2 walks them again for
+// the probabilities and p v (two exponentials a logit). The chunks go
+// through buffer 0 (K at ka, V at va).
+__device__ __forceinline__ void bf16_tile_streamed(
+    uint32_t qa, uint32_t ka, uint32_t va, const __nv_bfloat16* kbase,
+    int64_t ks, const __nv_bfloat16* vbase, int64_t vs, int s,
+    __nv_bfloat16* out, int64_t ol, int rows, const Bf16Thread& th) {
+  const int key0 = th.wg * kWgKeys;
+  float* mrow = th.rmax + th.r0 * 2 * kWgs;
+  float* lrow = th.rsum + th.r0 * 2 * kWgs;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  float sc[kLogits];
+  for (int k0 = 0; k0 < s; k0 += kOnChipKeys) {
+    const int keys = min(kOnChipKeys, s - k0);
+    const int staged = (keys + kWgKeys - 1) / kWgKeys * kWgKeys;
+    __syncthreads();  // the chunk before is read
+    stage_rows(ka, kbase + k0 * ks, ks, staged, keys);
+    cp_async_commit();
+    copies_landed<0>();
+    if (key0 >= keys) continue;
+    bf16_qk<0>(sc, qa, ka, th);
+    bf16_qk<1>(sc, qa, ka, th);
+    wgmma_wait<0>();
+    pin(sc);
+    bf16_mask<0>(sc, keys, th);
+    bf16_mask<1>(sc, keys, th);
+    float x0 = m0, x1 = m1;
+    bf16_max<0>(sc, x0, x1);  // finite: key0 is a key
+    bf16_max<1>(sc, x0, x1);
+    float a0, a1, b0, b1;
+    bf16_exp<0>(sc, th.c, x0 * th.c, x1 * th.c, a0, a1);
+    bf16_exp<1>(sc, th.c, x0 * th.c, x1 * th.c, b0, b1);
+    l0 = l0 * exp2_approx((m0 - x0) * th.c) + (a0 + b0);  // 0 at the first
+    l1 = l1 * exp2_approx((m1 - x1) * th.c) + (a1 + b1);
+    m0 = x0;
+    m1 = x1;
+  }
+  if (th.t == 0) {
+    mrow[th.wg] = m0;
+    mrow[16 * kWgs + th.wg] = m1;
+    lrow[th.wg] = l0;
+    lrow[16 * kWgs + th.wg] = l1;
+  }
+  __syncthreads();
+  // every warpgroup holds keys of the first chunk, which is whole
+  const float mx0 = first_max(mrow, kWgs);
+  const float mx1 = first_max(mrow + 16 * kWgs, kWgs);
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWgs; ++w) {
+    sum0 += lrow[w] * exp2_approx((mrow[w] - mx0) * th.c);
+    sum1 += lrow[16 * kWgs + w] *
+            exp2_approx((mrow[16 * kWgs + w] - mx1) * th.c);
+  }
+  const float inv0 = 1.0f / sum0, inv1 = 1.0f / sum1;
+  float o[16];  // the first chunk's product overwrites it
+  uint32_t p[kPvSteps][4];
+  for (int k0 = 0; k0 < s; k0 += kOnChipKeys) {
+    const int keys = min(kOnChipKeys, s - k0);
+    const int staged = (keys + kWgKeys - 1) / kWgKeys * kWgKeys;
+    __syncthreads();
+    stage_rows(ka, kbase + k0 * ks, ks, staged, keys);
+    stage_rows(va, vbase + k0 * vs, vs, staged, keys);
+    cp_async_commit();
+    copies_landed<0>();
+    if (key0 >= keys) continue;
+    bf16_qk<0>(sc, qa, ka, th);
+    bf16_qk<1>(sc, qa, ka, th);
+    wgmma_wait<0>();
+    pin(sc);
+    bf16_mask<0>(sc, keys, th);
+    bf16_mask<1>(sc, keys, th);
+    float a0, a1;
+    bf16_exp<0>(sc, th.c, mx0 * th.c, mx1 * th.c, a0, a1);
+    bf16_exp<1>(sc, th.c, mx0 * th.c, mx1 * th.c, a0, a1);
+    bf16_pack<0>(p, sc, inv0, inv1);
+    bf16_pack<1>(p, sc, inv0, inv1);
+    bf16_pv<0>(o, p, va, k0 > 0, th);
+    bf16_pv<1>(o, p, va, true, th);
+    wgmma_wait<0>();
+    pin(o);
+    pin(p);
+  }
+  bf16_part(o, th);
+  __syncthreads();
+  bf16_store(out, ol, rows, kWgs, th);
+}
+
+// Two warpgroups a block, one block an SM. The block walks the tiles
+// [first, last) of the sequence (batch, head, row tile of kRows rows), each
+// kRows / 64 wgmma tiles of 64 rows.
+template <int kRows>
+__global__ void __launch_bounds__(kWgs * kWgThreads, 1)
+attention_kernel_tile_bf16(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ out, int lq, int s,
+                           int h, int row_tiles, int tiles, Strides st,
+                           float scale) {
+  using L = Bf16Layout<kRows>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(base);
+  Bf16Thread th;
+  th.wg = threadIdx.x / kWgThreads;
+  th.r0 = threadIdx.x % kWgThreads / 32 * 16 + threadIdx.x % 32 / 4;
+  th.t = threadIdx.x % 4;
+  th.c = scale * kLog2e;
+  th.part = reinterpret_cast<float*>(base + L::part);
+  th.rmax = reinterpret_cast<float*>(base + L::rmax);
+  th.rsum = reinterpret_cast<float*>(base + L::rsum);
+  PHASE_CLOCKS_CLEAR();
+
+  const int share = tiles / gridDim.x, extra = tiles % gridDim.x;
+  const int first = blockIdx.x * share + min((int)blockIdx.x, extra);
+  const int last = first + share + ((int)blockIdx.x < extra);
+  if (first >= last) return;
+  // tile j: its first row and pointers
+  struct Tile {
+    int row0;
+    const __nv_bfloat16 *q, *k, *v;
+    __nv_bfloat16* out;
+  };
+  auto tile_at = [&](int j) {
+    Tile x;
+    const int bh = j / row_tiles;
+    x.row0 = j % row_tiles * kRows;
+    const int64_t b = bh / h, hh = bh % h;
+    x.q = q + b * st.qb + x.row0 * st.ql + hh * st.qh;
+    x.k = k + b * st.kb + hh * st.kh;
+    x.v = v + b * st.vb + hh * st.vh;
+    x.out = out + b * st.ob + x.row0 * st.ol + hh * st.oh;
+    return x;
+  };
+  // q buffer i at q_buf(i); K of buffer i at k_buf(i), its V kKeyBytes on
+  auto q_buf = [&](int i) { return sb + L::q + i * kRows * kRowBytes; };
+  auto k_buf = [&](int i) { return sb + L::kv + i * 2 * kKeyBytes; };
+
+  if (s > kOnChipKeys) {
+    for (int j = first; j < last; ++j) {
+      const Tile x = tile_at(j);
+      // the tile before read its q before its final barrier; the first
+      // chunk's wait covers it
+      stage_rows(q_buf(0), x.q, st.ql, kRows, lq - x.row0);
+      for (int sub = 0; sub * kWgmmaRows < min(kRows, lq - x.row0); ++sub)
+        bf16_tile_streamed(q_buf(0) + sub * kWgmmaRows * kRowBytes, k_buf(0),
+                           k_buf(0) + kKeyBytes, x.k, st.ks, x.v, st.vs, s,
+                           x.out + sub * kWgmmaRows * st.ol, st.ol,
+                           lq - x.row0 - sub * kWgmmaRows, th);
+    }
+    return;
+  }
+
+  // All keys staged: K and V once a head, into the buffer the head before
+  // did not use, and each step's q, one step ahead
+  const int staged = (s + kWgKeys - 1) / kWgKeys * kWgKeys;
+  auto stage = [&](int j, int qb, int kb, bool with_keys) {
+    const Tile x = tile_at(j);
+    stage_rows(q_buf(qb), x.q, st.ql, kRows, lq - x.row0);
+    if (with_keys) {
+      stage_rows(k_buf(kb), x.k, st.ks, staged, s);
+      stage_rows(k_buf(kb) + kKeyBytes, x.v, st.vs, staged, s);
+    }
+    cp_async_commit();
+  };
+  stage(first, 0, 0, true);
+  int kb = 0;
+  for (int j = first; j < last; ++j) {
+    const int qb = (j - first) & 1;
+    const bool more = j + 1 < last;
+    const bool new_head = more && (j + 1) % row_tiles == 0;
+    // the buffers written here were last read before the step before's
+    // final barrier
+    PHASE_CLOCK_START();
+    if (more)
+      stage(j + 1, qb ^ 1, kb ^ 1, new_head);
+    else
+      cp_async_commit();
+    copies_landed<1>();
+    PHASE_CLOCK(11);
+    const Tile x = tile_at(j);
+    for (int sub = 0; sub * kWgmmaRows < min(kRows, lq - x.row0); ++sub)
+      bf16_tile_staged(q_buf(qb) + sub * kWgmmaRows * kRowBytes, k_buf(kb),
+                       k_buf(kb) + kKeyBytes, s,
+                       x.out + sub * kWgmmaRows * st.ol, st.ol,
+                       lq - x.row0 - sub * kWgmmaRows, th);
+    if (new_head) kb ^= 1;
+  }
+  PHASE_CLOCKS_WRITE();
+}
+
+template <int kRows>
+cudaError_t launch_tile_bf16(const void* q, const void* k, const void* v,
+                             void* out, int b, int lq, int s, int h,
+                             const Strides& st, float scale,
+                             cudaStream_t stream) {
+  constexpr int kBytes = Bf16Layout<kRows>::bytes;
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices] = {};  // 0: this device not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(attention_kernel_tile_bf16<kRows>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int row_tiles = (lq + kRows - 1) / kRows;
+  const int64_t tiles = (int64_t)b * h * row_tiles;
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>(tiles < sms[dev] ? tiles : sms[dev]);
+  attention_kernel_tile_bf16<kRows>
+      <<<blocks, kWgs * kWgThreads, kBytes, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(out), lq, s, h, row_tiles, (int)tiles,
+          st, scale);
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -734,10 +1328,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int tile_rows, cudaStream_t stream) {
   if (tile_rows == 0)
     return launch_row<T>(q, k, v, out, b, lq, s, h, st, scale, stream);
-  if (tile_rows == 64)
-    return launch_tile<T, 4>(q, k, v, out, b, lq, s, h, st, scale, stream);
-  if (tile_rows == 128)
-    return launch_tile<T, 8>(q, k, v, out, b, lq, s, h, st, scale, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (tile_rows == 64)
+      return launch_tile_bf16<64>(q, k, v, out, b, lq, s, h, st, scale, stream);
+    if (tile_rows == 128)
+      return launch_tile_bf16<128>(q, k, v, out, b, lq, s, h, st, scale,
+                                   stream);
+  } else {
+    if (tile_rows == 64)
+      return launch_tile<T, 4>(q, k, v, out, b, lq, s, h, st, scale, stream);
+    if (tile_rows == 128)
+      return launch_tile<T, 8>(q, k, v, out, b, lq, s, h, st, scale, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -10,13 +10,14 @@ chunk), the refinement decode (Lq = 1) and the evaluation step. A forward
 that needs a gradient, a key-padding mask or dropout takes
 :func:`einsum_attention`; ``MultiHeadAttention.forward`` chooses.
 
-* On a CUDA tensor it launches one of the two kernels of
-  ``csrc/attention.cu``, built with ``nvcc`` for ``sm_90a`` into ``build/``
-  at first use and bound with ctypes. :func:`choose_kernel` picks by Lq: the
-  row kernel (threads split the keys of one query row) up to
-  ``ROW_MAX_LQ`` rows, the tile kernel (both products on the tensor cores,
-  logits and probabilities kept in registers) above. A shape, dtype or
-  layout neither takes raises; nothing falls back.
+* On a CUDA tensor it launches one of the kernels of ``csrc/attention.cu``,
+  built with ``nvcc`` for ``sm_90a`` into ``build/`` at first use and bound
+  with ctypes. :func:`choose_kernel` picks by Lq: the row kernel (threads
+  split the keys of one query row) up to ``ROW_MAX_LQ`` rows, the tile
+  kernel above, both products on the tensor cores: in bfloat16 on wgmma
+  with a head's K and V in shared memory and one exponential a logit, in
+  float32 on split-TF32 mma.sync. A shape, dtype or layout none takes
+  raises; nothing falls back.
 * On a CPU tensor it runs :func:`flash_cross_attention_plain`, the same
   arithmetic written with einsum and softmax.
 
@@ -58,11 +59,18 @@ ROW_MAX_LQ = 3
 #: most keys the row kernel takes (its logits stay under 48 KB a block);
 #: beyond, the tile kernel serves few rows too, the rest of its tile masked
 ROW_MAX_KEYS = 8192
-#: query rows a block of the tile kernel (16 a warp) by dtype: what was
-#: faster on the H100 at the large main-path shapes, by about a tenth in
-#: bfloat16 and by nothing in float32 (PERF.md)
+#: query rows a block of the tile kernel takes at a time, by dtype: what was
+#: faster on the H100 at the large main-path shapes (PERF.md). float32: 16
+#: a warp; bfloat16: one or two wgmma tiles of 64 rows
 TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
 _TILE_ROWS_BUILT = (64, 128)
+#: keys a block of the bfloat16 tile kernel holds in shared memory (S up to
+#: this: one exponential a logit; beyond, two passes over chunks of this
+#: many), keys of them each of its two warpgroups holds, and the half of
+#: those whose q k^T it takes at a time
+BF16_BLOCK_KEYS = 512
+BF16_WARPGROUP_KEYS = 256
+BF16_HALF_KEYS = 128
 
 #: kernel launches since the last reset (set it to 0 to start a count)
 launches = 0
@@ -196,6 +204,83 @@ def flash_cross_attention_split_tf32_emulated(
     logits = product("bqhd,bkhd->bhqk", q * scale, k)
     probs = torch.softmax(logits, dim=-1)
     return product("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_cross_attention_bf16_emulated(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 tile kernel's order of operations in plain PyTorch, for
+    tests; nothing on any path calls it.
+
+    fp32 logits of the unscaled bf16 inputs; exponents ``fma(logit, c, -m *
+    c)`` with c = scale * log2(e), through exp2. Up to ``BF16_BLOCK_KEYS``
+    keys (one exp a logit): the keys in four halves of ``BF16_HALF_KEYS``,
+    two a warpgroup, each half's exps against its own maximum m_h (0 where
+    all its keys are past S) and their sum l_h; then the row's maximum m,
+    g_h = 2^((m_h - m) c), the sum (l_0 g_0 + l_1 g_1) + (l_2 g_2 + l_3 g_3)
+    and each half's probabilities ``e * (g_h * (1 / sum))``. Beyond: keys in
+    chunks of ``BF16_BLOCK_KEYS``, each in slices of ``BF16_WARPGROUP_KEYS``,
+    one a warpgroup; each warpgroup's maximum and sum over its slices of
+    every chunk, the sum rescaled as the maximum grows, then combined; the
+    exps taken again against the row's maximum, the probabilities ``e * (1 /
+    sum)``. The probabilities rounded to bf16, each slice's product with v
+    summed in fp32, the two warpgroups' outputs added, the result rounded to
+    bf16."""
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError("the emulation is of the bfloat16 tile kernel")
+    b, lq, h, hd = q.shape
+    s = k.shape[1]
+    dev = q.device
+    c = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32, device=dev)
+         * torch.tensor(math.log2(math.e), dtype=torch.float32, device=dev))
+    chunks = -(-s // BF16_BLOCK_KEYS)
+    wgs = BF16_BLOCK_KEYS // BF16_WARPGROUP_KEYS
+    pad = chunks * BF16_BLOCK_KEYS - s
+    # keys past S: logit -inf, value 0
+    x = torch.nn.functional.pad(
+        torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()), (0, pad),
+        value=-math.inf).view(b, h, lq, chunks, wgs, BF16_WARPGROUP_KEYS)
+    vs = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)).view(
+        b, chunks, wgs, BF16_WARPGROUP_KEYS, h, hd)
+
+    def exp2(logits, m):  # 2^fma(logit, c, -m c), the fma rounded once
+        mc = (m * c).double()
+        return torch.exp2((logits.double() * c.double() - mc).float())
+
+    if chunks == 1:
+        halves = BF16_WARPGROUP_KEYS // BF16_HALF_KEYS
+        xh = x.view(b, h, lq, wgs * halves, BF16_HALF_KEYS)
+        m_h = xh.amax(-1)
+        e = exp2(xh, torch.where(m_h == -math.inf, 0.0, m_h)[..., None])
+        g = torch.exp2((m_h - m_h.amax(-1, keepdim=True)) * c)
+        lg = e.sum(-1) * g
+        total = (lg[..., 0] + lg[..., 1]) + (lg[..., 2] + lg[..., 3])
+        factor = g * (1.0 / total)[..., None]
+        p = (e * factor[..., None]).to(torch.bfloat16).float().view(x.shape)
+    else:
+        m_w = torch.full((b, h, lq, wgs), -math.inf, device=dev)
+        l_w = torch.zeros((b, h, lq, wgs), device=dev)
+        for ch in range(chunks):
+            m_new = torch.maximum(m_w, x[:, :, :, ch].amax(-1))
+            l_w = (l_w * torch.exp2((m_w - m_new) * c)
+                   + exp2(x[:, :, :, ch], m_new[..., None]).sum(-1))
+            m_w = m_new
+        m_all = m_w.amax(-1)
+        total = torch.zeros((b, h, lq), device=dev)
+        for w in range(wgs):
+            total = total + l_w[..., w] * torch.exp2(
+                (m_w[..., w] - m_all) * c)
+        e = exp2(x, m_all[..., None, None, None])
+        inv = 1.0 / total
+        p = (e * inv[..., None, None, None]).to(torch.bfloat16).float()
+    o_w = torch.zeros((b, h, lq, wgs, hd), device=dev)
+    for ch in range(chunks):
+        o_w = o_w + torch.einsum("bhqwk,bwkhd->bhqwd", p[:, :, :, ch],
+                                 vs[:, ch])
+    out = o_w[..., 0, :]
+    for w in range(1, wgs):
+        out = out + o_w[..., w, :]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
 def choose_kernel(lq: int, s: int, dtype: torch.dtype) -> str:

@@ -137,3 +137,43 @@ def test_any_number_of_keys(card, lq, s, dtype):
     want = attention.flash_cross_attention_plain(q, k, v)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=_TOL[dtype])
+
+
+# the bfloat16 tile kernel against its emulation, which takes the same
+# steps in the same order: only exp2 (the special-function unit's 2 ulp
+# against torch's) and the order of each warpgroup's sums differ, so a
+# probability that rounds the other way moves an output by at most one bf16
+# ulp, 2**-8 for outputs below 1
+_EMULATED_TOL = 2.0 ** -8
+
+
+def _bf16_on_card(card, b, lq, s):
+    return [torch.from_numpy(x).to(card, torch.bfloat16)
+            for x in _inputs(b, lq, s=s, seed=lq + s)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("b,lq,s", [(2, 600, 512), (4, 8192, 512),
+                                    (2, 65, 300),
+                                    # past the 512 keys a block holds
+                                    (2, 65, 1729), (1, 600, 9000)])
+def test_bf16_tile_kernel_matches_emulation(card, b, lq, s, tile_rows):
+    q, k, v = _bf16_on_card(card, b, lq, s)
+    got = attention.flash_cross_attention(q, k, v, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    want = attention.flash_cross_attention_bf16_emulated(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _EMULATED_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [512, 1729])
+def test_bf16_tile_kernel_reads_a_strided_q(card, s):
+    """q as a view of a wider projection, its rows 64 elements apart."""
+    q, k, v = _bf16_on_card(card, 2, 100, s)
+    wide = torch.cat([q, q], dim=-1)[..., :32]
+    got = attention.flash_cross_attention(wide, k, v)
+    torch.cuda.synchronize()
+    want = attention.flash_cross_attention_bf16_emulated(q, k, v)
+    assert (got.float() - want.float()).abs().max().item() <= _EMULATED_TOL
