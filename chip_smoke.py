@@ -12,14 +12,14 @@ Phases (any failure exits non-zero):
    (csrc/squads.cpp) and the MegaDepth data path's loops (csrc/depth.cpp),
    the last two with the host C++ compiler; the native squad formation
    must equal the numpy scan exactly on 10,000 generated tasks;
-3. the kernels (the tile kernels, bfloat16 on wgmma and float32 on
-   mma.sync, and the row kernel, behind one wrapper) vs their plain version
-   on the card at the main paths' shapes, float32 and bfloat16, with times
-   beside the plain version's, one ``F.scaled_dot_product_attention``
-   call's (a yardstick only; the port never calls it), the card's bound and
-   the floor of one exponential a logit; in bfloat16 also the kernel's and
-   SDPA's device time from a CUDA-graph replay, without the host's cost of
-   a call;
+3. the kernels (the tile kernels, bfloat16 and float32 on wgmma, and the
+   row kernel, behind one wrapper) vs their plain version on the card at
+   the main paths' shapes, float32 and bfloat16, with times beside the
+   plain version's, one ``F.scaled_dot_product_attention`` call's (a
+   yardstick only; the port never calls it), the card's bound and the
+   floor of one exponential a logit; also the kernel's device time from a
+   CUDA-graph replay, without the host's cost of a call, and in bfloat16
+   SDPA's;
 4. the squad engine's two windowed crops vs the full-image crop on the
    card;
 5. the flagship model at full width (6+6 layers, float32) forward on the
@@ -145,9 +145,9 @@ Phases (any failure exits non-zero):
     trace naming the attention kernel, and ``warp_by_flow(B, corr_a)``
     closer to A than B is; then ``ops.crop_and_resize`` on the card
     against the CPU (64 boxes of a 768 x 1024 image, out 256);
-27. one JSON line describing each kernel (float32, the tile and row
-    kernels; the bfloat16 tile kernel; the bfloat16 row kernel), each with
-    its own launches on the paths, then the device line last.
+27. one JSON line describing each kernel (the tile kernel and the row
+    kernel, in float32 and in bfloat16), each with its own launches on the
+    paths, then the device line last.
 
 The kernel's launch counts are set to 0 just before each path and read just
 after it.
@@ -616,8 +616,8 @@ def phase_crops(sampling) -> list:
 def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
     """The kernel at (B, Lq, S) in ``dtype`` against its plain version
     (raises past ``KERNEL_TOL``), and its times beside the plain version's,
-    SDPA's, the bound and the exp floor; in bfloat16 the kernel's and SDPA's
-    graph-replay device times too."""
+    SDPA's, the bound and the exp floor; the kernel's graph-replay device
+    time too, and in bfloat16 SDPA's."""
     h, hd = 8, 32
     td = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(b * 131 + lq)
@@ -638,15 +638,13 @@ def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
-    # bfloat16 only: SDPA's float32 path keeps its logits, 2 GB a call at
-    # (256, 512), and a graph holds every call's
-    graph = {}
+    graph = dict(graph_ms=graph_ms(
+        lambda: attention.flash_cross_attention(q, k, v), 10))
+    # SDPA's in bfloat16 only: its float32 path keeps its logits, 2 GB a
+    # call at (256, 512), and a graph holds every call's
     if dtype == "bfloat16":
-        graph = dict(
-            graph_ms=graph_ms(
-                lambda: attention.flash_cross_attention(q, k, v), 10),
-            graph_library_ms=graph_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), 10))
+        graph["graph_library_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
     bound_ms, bound_by = attention_bound_ms(b, lq, s, h, hd, dtype)
     variant = attention.choose_kernel(lq, s, td)
     # the tile kernel at each height it is built for (at Lq = 1 too, where
@@ -668,8 +666,9 @@ def check_shape(attention, label, b, lq, dtype, exp_rate, s=512) -> dict:
         f"exp floor {row['exp_floor_ms']:.4f} ms"
         + "".join(f"  tile of {n} rows {t:.4f} ms"
                   for n, t in by_rows.items())
-        + (f"  graph replay: kernel {graph['graph_ms']:.4f} ms, sdpa "
-           f"{graph['graph_library_ms']:.4f} ms" if graph else ""))
+        + f"  graph replay: kernel {graph['graph_ms']:.4f} ms"
+        + (f", sdpa {graph['graph_library_ms']:.4f} ms"
+           if "graph_library_ms" in graph else ""))
     return row
 
 
@@ -3219,12 +3218,13 @@ def merged_shape_counts(records) -> list:
             for (b, lq, s, dtype), n in sorted(total.items())]
 
 
-def kernel_entry(name, keep, timed, rows, shape_counts, paths) -> dict:
+def kernel_entry(name, kernel, keep, timed, rows, shape_counts,
+                 paths) -> dict:
     """The ``kernels`` line's entry of the kernel whose shapes ``keep``
-    selects: its launches on the paths (raises if none), its largest error
-    at its checked shapes, its times at (B, Lq) = ``timed``. The exp floor
-    stays in the log and in ``chip_smoke.json``: it is computed, not
-    measured."""
+    selects (``kernel``: its CUDA function): its launches on the paths
+    (raises if none), its largest error at its checked shapes, its times at
+    (B, Lq) = ``timed``. The exp floor stays in the log and in
+    ``chip_smoke.json``: it is computed, not measured."""
     counts = [r for r in shape_counts if keep(r)]
     launches = sum(r["launches"] for r in counts)
     if launches < 1:
@@ -3233,7 +3233,8 @@ def kernel_entry(name, keep, timed, rows, shape_counts, paths) -> dict:
               for r in rows if keep(r)]
     main_row = next(r for r in shapes if (r["b"], r["lq"]) == timed)
     return dict(
-        name=name, route="cuda", source="cotr_tpu_torch/csrc/attention.cu",
+        name=name, kernel=kernel, route="cuda",
+        source="cotr_tpu_torch/csrc/attention.cu",
         replaces="cotr_tpu/ops/pallas_attention.py:70",
         dtype=main_row["dtype"],
         launches=launches, shape_counts=counts,
@@ -3485,21 +3486,22 @@ def main() -> int:
                               rows)
 
     # one entry a kernel, each with its own launches (they sum to the
-    # paths'): float32 (the tile and row kernels), the bfloat16 tile
-    # kernel (wgmma) and the bfloat16 row kernel
+    # paths'): the float32 and bfloat16 tile kernels (wgmma) and the row
+    # kernel in each dtype
     def kind(r):
         return r["dtype"], attention.choose_kernel(
             r["lq"], r["s"], getattr(torch, r["dtype"]))
 
     kernels = [
-        kernel_entry("flash_cross_attention", lambda r: r["dtype"] ==
-                     "float32", (4, 8192), rows, shape_counts, paths),
-        kernel_entry("flash_cross_attention, bfloat16 tile", lambda r:
-                     kind(r) == ("bfloat16", "tile"), (8, 8192), rows,
-                     shape_counts, paths),
-        kernel_entry("flash_cross_attention, bfloat16 row", lambda r:
-                     kind(r) == ("bfloat16", "row"), (256, 1), rows,
-                     shape_counts, paths)]
+        kernel_entry(f"flash_cross_attention, {dtype} {variant}", symbol,
+                     lambda r, key=(dtype, variant): kind(r) == key, timed,
+                     rows, shape_counts, paths)
+        for dtype, variant, symbol, timed in (
+            ("float32", "tile", "attention_kernel_tile_f32", (8, 8192)),
+            ("float32", "row", "attention_kernel_row<float>", (256, 1)),
+            ("bfloat16", "tile", "attention_kernel_tile_bf16", (8, 8192)),
+            ("bfloat16", "row", "attention_kernel_row<__nv_bfloat16>",
+             (256, 1)))]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build=build, crops=crops, forward=forward,

@@ -5,9 +5,10 @@
         [--shapes 1x512,1x8192] [--rounds 1]
 
 Runs ``chip_smoke.check_shape`` (the kernel against its plain version, its
-time beside SDPA's, the bound, the exp floor and, in bfloat16, the
-graph-replay device times) at every shape of ``chip_smoke.SHAPES`` plus
-``EXTRA_SHAPES`` (or at ``--shapes``, each BxLq, S = 512) for
+time beside SDPA's, the bound, the exp floor and the kernel's graph-replay
+device time, in bfloat16 SDPA's too) at every shape of
+``chip_smoke.SHAPES`` plus ``EXTRA_SHAPES`` (or at ``--shapes``, each
+BxLq, S = 512) for
 OTHER_CHECKOUT's kernels, this checkout's, this checkout's again and
 OTHER_CHECKOUT's again, each in a process of its own (both checkouts hold a
 package of the same name), so that drift on the card shows; ``--rounds``
@@ -33,8 +34,9 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# bfloat16 shapes the paths launch beyond chip_smoke.SHAPES
-EXTRA_SHAPES = [(4, 512), (16, 512), (16, 200)]
+# shapes the paths launch beyond chip_smoke.SHAPES, by dtype
+EXTRA_SHAPES = {"bfloat16": [(4, 512), (16, 512), (16, 200)],
+                "float32": [(64, 512), (2, 8192), (16, 512)]}
 # SM clocks of the spin the calls queue behind: 0.1 s at 1.98 GHz, longer
 # than the host takes to enqueue them
 SPIN_CLOCKS = 200_000_000
@@ -146,7 +148,8 @@ def main(argv=None) -> int:
             print(f"[compare] {tag}: {checkout}", flush=True)
             subprocess.run([sys.executable, "-c", _RUN.format(
                 checkout=checkout, root=ROOT, shapes=shapes,
-                extra=EXTRA_SHAPES, dtype=args.dtype)], check=True)
+                extra=EXTRA_SHAPES[args.dtype], dtype=args.dtype)],
+                check=True)
     return 0
 
 

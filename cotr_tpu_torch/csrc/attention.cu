@@ -1,8 +1,8 @@
 // Fused cross-attention for Hopper (sm_90a), exposed through a plain C entry
 // point and called from cotr_tpu_torch/ops/attention.py over ctypes.
 //
-// Replaces: cotr_tpu/ops/pallas_attention.py, flash_cross_attention and its
-// Pallas body _attn_kernel. Per (batch, head) it computes
+// Replaces: cotr_tpu/ops/pallas_attention.py:34-88, flash_cross_attention
+// and its Pallas body _attn_kernel. Per (batch, head) it computes
 //     out = softmax((q * 1/sqrt(hd)) k^T) v
 // over all S keys, with fp32 logits, an fp32 softmax, the NORMALISED
 // probabilities rounded to the value dtype before the PV product (as the
@@ -56,31 +56,59 @@
 // tile_rows (64 or 128) is the query rows a block takes a step: one or two
 // wgmma tiles of 64 rows against the staged keys.
 //
-// attention_kernel_tile (float32, Lq above 3). What bounds it: the
-// products. float32 keeps seven digits on TF32 tensor cores by splitting
-// every operand, and its three TF32 products cost six times the
-// tensor-core time of one bf16 product. What the design does:
-//   * a warp owns 16 query rows, 4 or 8 warps a block share the K and V
-//     tiles (64 keys) that stream through shared memory, fetched into
-//     registers one tile ahead;
-//   * both products run on the tensor cores (mma.sync), and the logits and
-//     probabilities never leave the registers: the accumulator tiles of
-//     q k^T are, after the exp, the A operand of p v (WarpTile);
-//   * two passes over the keys instead of an online rescaled sum: pass 1
-//     places each row's maximum from one TF32 product, pass 2 recomputes
-//     the logits, sums exp2 as it goes, multiplies with V and divides at
-//     the end (float32 has no rounding of the probabilities to reproduce);
-//   * the split: every operand becomes hi = tf32(x) and lo = tf32(x - hi),
-//     and the three products lo*hi, hi*lo, hi*hi are summed small terms
-//     first. One TF32 product alone errs by 1e-3. The tensor cores add into
-//     their accumulator with truncation, so long sums are cut into key tiles
-//     whose partial sums are added on the fp32 pipes;
+// attention_kernel_tile_f32 (float32, Lq above 3: the same paths in float32,
+// the engines', the demos' and the evaluation twin's default). What bounds
+// it: the products. Float32 keeps seven digits on the TF32 tensor cores
+// only with every operand split into hi = tf32(x) and lo = tf32(x - hi) and
+// three products summed, lo*hi, hi*lo and hi*hi (hi*hi alone errs by
+// 1e-3): 0.208 ms at (8, 8192) at 495 TFLOP/s, above the bytes (0.080 ms
+// at (256, 512)) and the exponentials (0.064 ms at (8, 8192)). What the
+// design does:
+//   * three warpgroups a block, one block an SM, persistent over an even
+//     share of the (batch, head, row tile) sequence. One stages: it walks
+//     the block's keys in chunks of 64, loads a chunk of K and V (16 KB)
+//     into registers a chunk ahead, splits each value and stores K hi, K lo
+//     and V^T hi, V^T lo (V transposed on the way: TF32 wgmma reads both
+//     operands K-major) under the 128-byte swizzle into a ring of 6 stages
+//     of 32 KB, each signalled by an mbarrier. A head's split K and V (256
+//     KB at 512 keys) do not fit a block's 227 KB; a pre-pass splitting
+//     them once a call would write and read back twice their bytes (0.24 ms
+//     at (256, 512)), where the ring reads a head's 128 KB from L2 again a
+//     step of 128 rows (512 MB of L2 reads at (128, 512));
+//   * two warpgroups compute, each on 64 query rows (128 rows a step), or
+//     both on the same 64 rows, one the even and one the odd chunks, their
+//     rows' maxima, sums and outputs merged through shared memory (64 rows
+//     a step). q's hi and lo A fragments stay in registers, the next step's
+//     q in flight. Per chunk: q k^T as 12 wgmma m64n64k8 in one chain,
+//     small terms first; an online softmax, one exponential a logit, the
+//     maxima, sums and outputs rescaled chunk by chunk (float32 has no
+//     rounding of the probabilities to reproduce); the probabilities split
+//     into hi and lo A fragments straight from the accumulator's registers
+//     (V^T's keys lie in the order those registers give them); p v as 16
+//     wgmma, p_lo v_hi then p_hi v_hi in one accumulator and p_hi v_lo in
+//     another (m64n64k8 over V^T's hi and lo rows side by side), added to
+//     the output on the fp32 pipes. The tensor cores truncate as they add,
+//     so no chain is longer than one chunk's;
+//   * the stager gives 64 registers a thread to the two that compute
+//     (setmaxnreg: 104 and 200); the TF32 rounding is two integer
+//     operations, where cvt.rna.tf32.f32 took longer;
 //   * keys past S are zero-filled and get probability 0; rows past Lq are
 //     computed on zeros and never stored; any S is taken.
-// Its template keeps the branches of the bfloat16 mma.sync kernel that
-// attention_kernel_tile_bf16 replaced; only float32 instantiates it.
-// Deleting them (float32's machine code stays as it is) is the first step
-// of the float32 redesign.
+// What sets its pace as built (profile_attention.py --dtype float32, SM
+// clocks on the H100 at (8, 8192), 128 rows a step): a chunk takes a
+// computing warpgroup about 4,000 clocks, where its products are 768 at the
+// TF32 rate: its q k^T (about 900 with the wait), softmax (about 1,000)
+// and p v (about 1,000) follow each other, and the two warpgroups' products
+// share the tensor cores; the wait for a staged chunk about 500. The
+// products themselves are not slow: chains of them from two warpgroups run
+// at the TF32 peak (profile_attention.py --wgmma-rate), so the tensor cores
+// are idle while a warpgroup's softmax runs and the other's has nothing
+// queued. Tried and
+// not kept, each slower: q k^T in 8 steps (m64n128k8 over K hi and lo side
+// by side); the two warpgroups taking turns on the tensor cores (named
+// barriers); each chunk's q k^T issued with the p v before it, the softmax
+// under that p v (q from shared memory): ptxas serialized the wgmma and
+// spilled at 208 registers.
 //
 // attention_kernel_row (Lq of a few rows: the refinement decode, Lq = 1 at a
 // batch of up to 256). What bounds it: bytes, reading K and V once. No
@@ -140,14 +168,14 @@ __device__ __forceinline__ float round_prob(float p, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(p));
 }
 
-// ------------------------------------------------------------ tile kernel
+// ------------------------------------------------ both tile kernels' helpers
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {  // to nearest
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
-  return u;
+// to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds a finite x,
+// in two integer operations: the conversion takes longer
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 // x = hi + lo to 21 bits, both TF32 numbers
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
@@ -162,389 +190,6 @@ __device__ __forceinline__ float exp2_approx(float x) {  // 2 ulp; 2^-inf = 0
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// c (16 x 8, fp32) += a (16 x 8, TF32) b (8 x 8, TF32). With g = lane / 4 and
-// t = lane % 4 a thread holds a[0] = A(g, t), a[1] = A(g + 8, t),
-// a[2] = A(g, t + 4), a[3] = A(g + 8, t + 4); b0 = B(t, g), b1 = B(t + 4, g);
-// c[0], c[1] = C(g, 2t), C(g, 2t + 1); c[2], c[3] the same of row g + 8.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// What one warp does with its 16 query rows, per dtype: q as A fragments in
-// registers, the logits of 16 keys as two accumulator tiles, and those
-// tiles, turned into probabilities, times V into the output tiles. K and V
-// tiles lie in shared memory as `copies` arrays of key_tile rows, ldk or ldv
-// elements apart.
-template <typename T> struct WarpTile;
-
-// float32: TF32 tiles, every operand split into hi + lo (K and V when they
-// are staged, q and the probabilities in registers), three products
-// lo*hi, hi*lo, hi*hi summed small terms first. The tensor cores add into
-// their accumulator with truncation, a bias that grows with the length of
-// the chain; so p v is summed there over one key tile only and the tiles'
-// sums are added on the fp32 pipes, which round to nearest.
-template <> struct WarpTile<float> {
-  static constexpr int copies = 2;   // hi, lo
-  static constexpr int key_tile = 64;
-  static constexpr int ldk = 36;     // row strides that keep the 16-byte
-  static constexpr int ldv = 36;     // fragment loads free of bank conflicts
-  static constexpr bool kScaleQ = true;  // q scaled in fp32, as the plain version
-  uint32_t qhi[4][4], qlo[4][4];
-
-  __device__ __forceinline__ void load_q(const float* q, int64_t stride,
-                                         int valid, float scale, int g, int t) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // the sum over the head dimension does not care about its order:
-        // slots t and t + 4 of step ks take dimensions 8t + 2ks and + 1, so
-        // that a thread's share of a key row is 8 neighbours, two 16-byte loads
-        const int r = g + (i & 1) * 8;
-        const int c = 8 * t + 2 * ks + (i >> 1);
-        const float x = r < valid ? q[(int64_t)r * stride + c] * scale : 0.0f;
-        split_tf32(x, qhi[ks][i], qlo[ks][i]);
-      }
-  }
-  // a thread's 8 dimensions of one key row: b[2 * ks], b[2 * ks + 1] are the
-  // B fragment of step ks
-  static __device__ __forceinline__ void key_row(uint32_t (&b)[8],
-                                                 const uint32_t* at) {
-    const uint4 lo = *reinterpret_cast<const uint4*>(at);
-    const uint4 hi = *reinterpret_cast<const uint4*>(at + 4);
-    b[0] = lo.x; b[1] = lo.y; b[2] = lo.z; b[3] = lo.w;
-    b[4] = hi.x; b[5] = hi.y; b[6] = hi.z; b[7] = hi.w;
-  }
-  // logits of keys [k0, k0 + 16) of the staged tile, hi*hi only: good to
-  // three digits, enough to place the maximum
-  __device__ __forceinline__ void scores_coarse(float (&sc)[2][4], const float* ks_,
-                                                int k0, int g, int t) const {
-    const uint32_t* kh = reinterpret_cast<const uint32_t*>(ks_);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.0f;
-      uint32_t bh[8];
-      key_row(bh, kh + (k0 + 8 * j + g) * ldk + 8 * t);
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        mma_tf32(sc[j], qhi[ks], bh[2 * ks], bh[2 * ks + 1]);
-    }
-  }
-  __device__ __forceinline__ void scores(float (&sc)[2][4], const float* ks_,
-                                         int k0, int g, int t) const {
-    const uint32_t* kh = reinterpret_cast<const uint32_t*>(ks_);
-    const uint32_t* kl = kh + key_tile * ldk;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.0f;
-      const int off = (k0 + 8 * j + g) * ldk + 8 * t;
-      uint32_t bh[8], bl[8];
-      key_row(bh, kh + off);
-      key_row(bl, kl + off);
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        mma_tf32(sc[j], qlo[ks], bh[2 * ks], bh[2 * ks + 1]);
-        mma_tf32(sc[j], qhi[ks], bl[2 * ks], bl[2 * ks + 1]);
-      }
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        mma_tf32(sc[j], qhi[ks], bh[2 * ks], bh[2 * ks + 1]);
-    }
-  }
-  // acc (16 x 32 as four tiles) += p v over keys [k0, k0 + 16). An
-  // accumulator tile holds columns 2t, 2t + 1 where the A operand wants t,
-  // t + 4; the sum over keys does not care, so key 2t rides in slot t and
-  // key 2t + 1 in slot t + 4, for p and for v alike. Nor does the output
-  // care which of its columns a tile holds: column g of tile d is dimension
-  // 4g + d, so that a thread reads 4 neighbours of a V row in one load and
-  // ends up with dimensions 8t .. 8t + 7 of its rows (store_out).
-  __device__ __forceinline__ void pv(float (&acc)[4][4], const float (&p)[2][4],
-                                     const float* vs_, int k0, int g, int t) const {
-    const uint32_t* vh = reinterpret_cast<const uint32_t*>(vs_);
-    const uint32_t* vl = vh + key_tile * ldv;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t phi[4], plo[4];
-      split_tf32(p[j][0], phi[0], plo[0]);
-      split_tf32(p[j][2], phi[1], plo[1]);
-      split_tf32(p[j][1], phi[2], plo[2]);
-      split_tf32(p[j][3], phi[3], plo[3]);
-      const int off = (k0 + 8 * j + 2 * t) * ldv + 4 * g;
-      const uint4 h0 = *reinterpret_cast<const uint4*>(vh + off);
-      const uint4 h1 = *reinterpret_cast<const uint4*>(vh + off + ldv);
-      const uint4 l0 = *reinterpret_cast<const uint4*>(vl + off);
-      const uint4 l1 = *reinterpret_cast<const uint4*>(vl + off + ldv);
-      const uint32_t bh0[4] = {h0.x, h0.y, h0.z, h0.w};
-      const uint32_t bh1[4] = {h1.x, h1.y, h1.z, h1.w};
-      const uint32_t bl0[4] = {l0.x, l0.y, l0.z, l0.w};
-      const uint32_t bl1[4] = {l1.x, l1.y, l1.z, l1.w};
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        mma_tf32(acc[d], plo, bh0[d], bh1[d]);
-        mma_tf32(acc[d], phi, bl0[d], bl1[d]);
-        mma_tf32(acc[d], phi, bh0[d], bh1[d]);
-      }
-    }
-  }
-  // row (g or g + 8, picked by r) of the output tiles, scaled
-  static __device__ __forceinline__ void store_out(float* orow, const float (&acc)[4][4],
-                                                   int r, float norm, int t) {
-    float4* at = reinterpret_cast<float4*>(orow + 8 * t);
-    at[0] = make_float4(acc[0][2 * r] * norm, acc[1][2 * r] * norm,
-                        acc[2][2 * r] * norm, acc[3][2 * r] * norm);
-    at[1] = make_float4(acc[0][2 * r + 1] * norm, acc[1][2 * r + 1] * norm,
-                        acc[2][2 * r + 1] * norm, acc[3][2 * r + 1] * norm);
-  }
-};
-
-// one key tile on its way from device memory to shared memory, held in
-// registers so that the loads of the next tile are in flight while the
-// warps work on this one; float32 values are split into hi and lo on the
-// way in, once a block and not once a warp
-template <typename T, int kThreads>
-struct TileFetch {
-  static constexpr int n = Vec<T>::n;
-  static constexpr int lanes = kHeadDim / n;
-  static constexpr int kKeyTile = WarpTile<T>::key_tile;
-  static constexpr int kTotal = kKeyTile * lanes;
-  static constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
-  uint4 raw[kPer];
-
-  __device__ __forceinline__ void fetch(const T* src, int64_t stride, int valid) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / lanes;
-      const int c = (idx % lanes) * n;
-      raw[i] = make_uint4(0u, 0u, 0u, 0u);  // keys past S are zeros
-      if (idx < kTotal && r < valid)
-        raw[i] = *reinterpret_cast<const uint4*>(src + (int64_t)r * stride + c);
-    }
-  }
-  __device__ __forceinline__ void commit(T* dst, int ld) const {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      if (idx >= kTotal) continue;
-      T* at = dst + (idx / lanes) * ld + (idx % lanes) * n;
-      if constexpr (std::is_same<T, float>::value) {
-        uint4 hi, lo;
-        split_tf32(__uint_as_float(raw[i].x), hi.x, lo.x);
-        split_tf32(__uint_as_float(raw[i].y), hi.y, lo.y);
-        split_tf32(__uint_as_float(raw[i].z), hi.z, lo.z);
-        split_tf32(__uint_as_float(raw[i].w), hi.w, lo.w);
-        *reinterpret_cast<uint4*>(at) = hi;
-        *reinterpret_cast<uint4*>(at + kKeyTile * ld) = lo;
-      } else {
-        *reinterpret_cast<uint4*>(at) = raw[i];
-      }
-    }
-  }
-};
-
-// kWarps warps a block, 16 query rows each. Two passes over the keys:
-// the first finds each row's maximum (and in bfloat16 its sum), the second
-// forms the probabilities in registers and multiplies them with V.
-template <typename T, int kWarps>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_kernel_tile(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out, int lq,
-                      int s, int h, int row_tiles, Strides st, float scale) {
-  using W = WarpTile<T>;
-  constexpr int kThreads = kWarps * 32;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kKeyTile = W::key_tile;
-  __shared__ uint4 kraw[W::copies * kKeyTile * W::ldk * (int)sizeof(T) / 16];
-  __shared__ uint4 vraw[W::copies * kKeyTile * W::ldv * (int)sizeof(T) / 16];
-  T* ksm = reinterpret_cast<T*>(kraw);
-  T* vsm = reinterpret_cast<T*>(vraw);
-
-  const int tile = blockIdx.x % row_tiles;
-  const int bh = blockIdx.x / row_tiles;
-  const int hh = bh % h;
-  const int b = bh / h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int row0 = tile * (kWarps * 16) + warp * 16;  // of this warp
-  const bool live = row0 < lq;  // a warp past Lq only helps to stage
-
-  const T* kbase = k + b * st.kb + hh * st.kh;
-  const T* vbase = v + b * st.vb + hh * st.vh;
-
-  TileFetch<T, kThreads> knext, vnext;
-  knext.fetch(kbase, st.ks, min(kKeyTile, s));
-
-  W w;
-  w.load_q(q + b * st.qb + (int64_t)row0 * st.ql + hh * st.qh, st.ql,
-           lq - row0, scale, g, t);
-  // logits go through exp2: x = c * logit, with the scale folded in where
-  // q was not scaled
-  const float c = W::kScaleQ ? kLog2e : scale * kLog2e;
-
-  // pass 1: per thread and row (g and g + 8), the maximum over the thread's
-  // own columns and, in bfloat16, the sum of exp2 against that maximum
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.0f, 0.0f};
-  for (int k0 = 0; k0 < s; k0 += kKeyTile) {
-    __syncthreads();
-    knext.commit(ksm, W::ldk);
-    __syncthreads();
-    const int k1 = k0 + kKeyTile < s ? k0 + kKeyTile : 0;  // then pass 2's first
-    knext.fetch(kbase + (int64_t)k1 * st.ks, st.ks, min(kKeyTile, s - k1));
-    if (k1 == 0) vnext.fetch(vbase, st.vs, min(kKeyTile, s));
-    if (!live) continue;
-    float sc[kKeyTile / 16][2][4];
-#pragma unroll
-    for (int step = 0; step < kKeyTile / 16; ++step) {
-      w.scores_coarse(sc[step], ksm, step * 16, g, t);
-      if (k0 + kKeyTile > s) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + step * 16 + j * 8 + 2 * t + (i & 1) >= s)
-              sc[step][j][i] = -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int step = 0; step < kKeyTile / 16; ++step)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mx = fmaxf(mx, fmaxf(sc[step][j][2 * r], sc[step][j][2 * r + 1]));
-      if constexpr (!kF32) {
-        // all columns so far may be past S: then the maximum is still -inf
-        const float mc = mx == -INFINITY ? 0.0f : mx * c;
-        float sum = l[r] * exp2_approx(m[r] * c - mc);
-#pragma unroll
-        for (int step = 0; step < kKeyTile / 16; ++step)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            sum += exp2_approx(fmaf(sc[step][j][2 * r], c, -mc)) +
-                   exp2_approx(fmaf(sc[step][j][2 * r + 1], c, -mc));
-        l[r] = sum;
-      }
-      m[r] = mx;
-    }
-  }
-  // the four threads of a row agree on its maximum and add up their sums
-  float mc[2], inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = m[r];
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    mc[r] = mx * c;  // finite: column 0 is a key
-    float sum = l[r] * exp2_approx(m[r] * c - mc[r]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    inv[r] = 1.0f / sum;
-    l[r] = 0.0f;
-  }
-
-  // pass 2: probabilities in registers, times V. bfloat16 rounds the
-  // normalised probabilities, as the Pallas body does; float32 has no
-  // rounding to reproduce, so it sums exp2 as it goes and divides at the end
-  float acc[4][4];
-#pragma unroll
-  for (int d = 0; d < 4; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[d][i] = 0.0f;
-  for (int k0 = 0; k0 < s; k0 += kKeyTile) {
-    __syncthreads();
-    knext.commit(ksm, W::ldk);
-    vnext.commit(vsm, W::ldv);
-    __syncthreads();
-    const int k1 = k0 + kKeyTile;
-    if (k1 < s) {
-      knext.fetch(kbase + (int64_t)k1 * st.ks, st.ks, min(kKeyTile, s - k1));
-      vnext.fetch(vbase + (int64_t)k1 * st.vs, st.vs, min(kKeyTile, s - k1));
-    }
-    if (!live) continue;
-    float part[4][4];  // this key tile's p v (float32 only)
-    if constexpr (kF32) {
-#pragma unroll
-      for (int d = 0; d < 4; ++d)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) part[d][i] = 0.0f;
-    }
-#pragma unroll
-    for (int step = 0; step < kKeyTile / 16; ++step) {
-      float p[2][4];
-      w.scores(p, ksm, step * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float e = exp2_approx(fmaf(p[j][i], c, -mc[i >> 1]));
-          if (k0 + kKeyTile > s &&
-              k0 + step * 16 + j * 8 + 2 * t + (i & 1) >= s)
-            e = 0.0f;
-          if constexpr (kF32) {
-            l[i >> 1] += e;
-            p[j][i] = e;
-          } else {
-            p[j][i] = e * inv[i >> 1];
-          }
-        }
-      if constexpr (kF32)
-        w.pv(part, p, vsm, step * 16, g, t);
-      else
-        w.pv(acc, p, vsm, step * 16, g, t);
-    }
-    if constexpr (kF32) {
-#pragma unroll
-      for (int d = 0; d < 4; ++d)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[d][i] += part[d][i];
-    }
-  }
-  if (!live) return;
-
-  float norm[2] = {1.0f, 1.0f};
-  if constexpr (kF32) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float sum = l[r];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      norm[r] = 1.0f / sum;
-    }
-  }
-  T* obase = out + b * st.ob + (int64_t)row0 * st.ol + hh * st.oh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row0 + g + 8 * r >= lq) continue;
-    W::store_out(obase + (int64_t)(g + 8 * r) * st.ol, acc, r, norm[r], t);
-  }
-}
-
-template <typename T, int kWarps>
-cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
-                        int b, int lq, int s, int h, const Strides& st,
-                        float scale, cudaStream_t stream) {
-  const int rows = kWarps * 16;
-  const int row_tiles = (lq + rows - 1) / rows;
-  const int64_t blocks = (int64_t)b * h * row_tiles;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  attention_kernel_tile<T, kWarps><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lq, s, h, row_tiles, st,
-      scale);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------- bfloat16 tile kernel (wgmma)
@@ -1196,6 +841,585 @@ cudaError_t launch_tile_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// -------------------------------------------- float32 tile kernel (wgmma)
+
+constexpr int kF32Keys = 64;          // keys a chunk
+constexpr int kF32Consumers = 2;      // warpgroups that compute
+constexpr int kF32Threads = (kF32Consumers + 1) * kWgThreads;  // + a stager
+constexpr int kF32Stages = 6;         // chunks the ring holds
+constexpr int kF32RowBytes = kHeadDim * 4;          // a float32 row of q, k, v
+constexpr int kF32Piece = kF32Keys * kF32RowBytes;  // 8 KB: K hi, K lo,
+                                                    // or half of V^T
+constexpr int kF32Stage = 4 * kF32Piece;            // of a chunk: 32 KB
+// registers a thread: a block starts with kF32LaunchRegs a thread, and the
+// stager gives up what the two that compute take on (setmaxnreg waits until
+// the registers it asks for are free)
+constexpr int kF32LaunchRegs = 65536 / kF32Threads / 8 * 8;  // 168
+constexpr int kF32ProducerRegs = 104;
+constexpr int kF32ConsumerRegs = 200;
+static_assert((kF32LaunchRegs - kF32ProducerRegs) >=
+                  kF32Consumers * (kF32ConsumerRegs - kF32LaunchRegs),
+              "the computing warpgroups take what the stager gives up");
+
+// The block's shared memory, as byte offsets from its base, which is
+// rounded up to 1,024 bytes (the swizzle reads address bits 7 to 9): the
+// ring of staged chunks; at 64 rows a step the two warpgroups' outputs,
+// row maxima and row sums, to be merged; the ring's mbarriers
+struct F32Layout {
+  static constexpr int ring = 0;
+  static constexpr int part = ring + kF32Stages * kF32Stage;
+  static constexpr int rmax = part + kF32Consumers * kWgmmaRows * kPartLd * 4;
+  static constexpr int rsum = rmax + kF32Consumers * kWgmmaRows * 4;
+  static constexpr int bars = rsum + kF32Consumers * kWgmmaRows * 4;
+  static constexpr int bytes = bars + 2 * kF32Stages * 8 + 1024;
+};
+static_assert(F32Layout::bytes <= 232448, "a block's shared memory");
+
+// A TF32 A fragment of wgmma (m64nNk8) from registers: a[i] is element
+// (r + F32_A_ROW(i), F32_A_COL(i, t)) of the warp's 16 rows and the step's 8
+// columns, r = lane / 4, t = lane % 4. An accumulator holds columns 2t and
+// 2t + 1 of rows r and r + 8; F32_P(j, i) is the accumulator register that
+// p v's step j takes as a[i], and F32_KEY(x) the key of a chunk that sits in
+// column x of an 8-key group of V^T, so that the two agree.
+#define F32_A_ROW(i) (8 * ((i) & 1))
+#define F32_A_COL(i, t) ((t) + 4 * ((i) >> 1))
+#define F32_P(j, i) (4 * (j) + (((i) & 1) << 1) + ((i) >> 1))
+#define F32_KEY(x) (2 * ((x) & 3) + ((x) >> 2))
+
+// d (64 x 64, fp32) (+)= a (64 x 8, TF32 from registers) b (8 x 64, TF32 in
+// shared memory, K-major); d is laid out as in wgmma_qk
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+// d (64 x 32, fp32) (+)= a (64 x 8, TF32 from registers) b (8 x 32, TF32 in
+// shared memory, K-major)
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+// byte offset of 16-byte chunk c (0..7) of row r in a tile of 128-byte rows
+// under the 128-byte swizzle (chunk bits 4-6 XOR address bits 7-9) that
+// desc_sw128 names; a tile starts 1,024-byte aligned
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * kF32RowBytes + ((c ^ (r & 7)) << 4);
+}
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows, 128-byte
+// swizzle: start address >> 4, leading byte offset 16 (unused: a k8 step's
+// 32 bytes lie in one swizzle atom), stride byte offset 1,024 (eight rows),
+// layout 1 = B128. A k8 step starts 32 bytes further into the rows.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+// V^T's k8 step j (keys 8j .. 8j + 7 of the chunk): each half of the
+// chunk's keys is a tile of 64 rows of 32 keys (128 bytes), the hi pieces'
+// 32 dimensions, then the lo pieces'
+__device__ __forceinline__ uint32_t vt_step(int j) {
+  return (j >> 2) * kF32Piece + (j & 3) * 32;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}"
+               :: "r"(bar) : "memory");
+}
+// one arrival a warp, from lane 0, predicated rather than branched around:
+// ptxas may serialize wgmma across a branch it cannot prove uniform
+__device__ __forceinline__ void mbar_arrive_warp(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 st;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 st, [%0];\n}"
+      :: "r"(bar), "r"(threadIdx.x % 32) : "memory");
+}
+// until the phase of the given parity has completed; the loop inside one
+// asm statement, for the same reason (CUTLASS's ClusterBarrier::wait)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+// the consumer warpgroups alone
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kF32Consumers * kWgThreads)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared16(uint32_t addr,
+                                            const uint32_t (&x)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" :: "r"(addr),
+               "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]) : "memory");
+}
+
+// one (batch, head, row tile) of the sequence the blocks share
+struct F32Tile {
+  int row0;
+  const float *q, *k, *v;
+  float* out;
+};
+__device__ __forceinline__ F32Tile f32_tile(int j, int rows, int row_tiles,
+                                            int h, const float* q,
+                                            const float* k, const float* v,
+                                            float* out, const Strides& st) {
+  F32Tile x;
+  const int bh = j / row_tiles;
+  x.row0 = j % row_tiles * rows;
+  const int64_t b = bh / h, hh = bh % h;
+  x.q = q + b * st.qb + x.row0 * st.ql + hh * st.qh;
+  x.k = k + b * st.kb + hh * st.kh;
+  x.v = v + b * st.vb + hh * st.vh;
+  x.out = out + b * st.ob + x.row0 * st.ol + hh * st.oh;
+  return x;
+}
+
+// The producer: one chunk of K and V in registers on its way to the ring,
+// 16 bytes of four key rows and of four value rows a thread
+struct F32Chunk {
+  float4 k[4], v[4];
+};
+// keys [0, valid) of the chunk at kb, vb; zeros past them
+__device__ __forceinline__ void f32_fetch(F32Chunk& x, const float* kb,
+                                          int64_t ks, const float* vb,
+                                          int64_t vs, int valid, int p) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = p + kWgThreads * u;  // key row i / 8, its 16 bytes i % 8
+    x.k[u] = i / 8 < valid
+                 ? *reinterpret_cast<const float4*>(kb + i / 8 * ks + i % 8 * 4)
+                 : zero;
+    // the keys whose values become columns 4 (p / 8 % 2) .. + 3 of the
+    // 8-key group p / 16 of V^T, and their dimensions 4 (p % 8) .. + 3
+    const int key = 8 * (p / 16) + F32_KEY(4 * (p / 8 % 2) + u);
+    x.v[u] = key < valid
+                 ? *reinterpret_cast<const float4*>(vb + key * vs + p % 8 * 4)
+                 : zero;
+  }
+}
+// the chunk split into TF32 hi and lo pieces, K as it is and V transposed,
+// into ring stage `at`: K hi and K lo (64 key rows each), then V^T in two
+// halves of 32 keys, each 32 hi and 32 lo dimension rows; 8 KB each
+__device__ __forceinline__ void f32_put(const F32Chunk& x, uint32_t at, int p) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = p + kWgThreads * u;
+    const uint32_t off = sw128(i / 8, i % 8);
+    uint32_t hi[4], lo[4];
+    split_tf32(x.k[u].x, hi[0], lo[0]);
+    split_tf32(x.k[u].y, hi[1], lo[1]);
+    split_tf32(x.k[u].z, hi[2], lo[2]);
+    split_tf32(x.k[u].w, hi[3], lo[3]);
+    st_shared16(at + off, hi);
+    st_shared16(at + kF32Piece + off, lo);
+  }
+  const int g = p / 16;  // the 8-key group, in the chunk's half g / 4
+  const uint32_t half = at + (2 + g / 4) * kF32Piece;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int d = 4 * (p % 8) + e;
+    const int c = 2 * (g % 4) + p / 8 % 2;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      split_tf32((&x.v[u].x)[e], hi[u], lo[u]);
+    st_shared16(half + sw128(d, c), hi);
+    st_shared16(half + sw128(kHeadDim + d, c), lo);
+  }
+}
+
+// What a consumer thread is within its block
+struct F32Thread {
+  int wg;  // consumer warpgroup, 0 or 1
+  int r0;  // its rows of a 64-row tile: r0 and r0 + 8
+  int t;   // lane % 4: its columns 8i + 2t and + 1 of each row
+  uint32_t ring, full, empty;
+  float* part;
+  float* rmax;
+  float* rsum;
+};
+
+// this thread's elements of q's A fragments (four k8 steps) of a 64-row
+// tile whose rows [0, rows) are rows of q; zeros past them
+__device__ __forceinline__ void f32_fetch_q(float (&x)[4][4], const float* q,
+                                            int64_t ql, int rows,
+                                            const F32Thread& th) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = th.r0 + F32_A_ROW(i);
+      x[ks][i] = r < rows ? q[r * ql + 8 * ks + F32_A_COL(i, th.t)] : 0.0f;
+    }
+}
+// scaled in fp32 as the plain version scales q, split into TF32 hi and lo
+__device__ __forceinline__ void f32_split_q(uint32_t (&qhi)[4][4],
+                                            uint32_t (&qlo)[4][4],
+                                            const float (&x)[4][4],
+                                            float scale) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_tf32(x[ks][i] * scale, qhi[ks][i], qlo[ks][i]);
+}
+// the logits of a 64-row tile against a staged chunk: q k^T as three TF32
+// products, lo*hi, hi*lo, hi*hi, small terms first, 12 k8 steps in one chain
+__device__ __forceinline__ void f32_qk(float (&sc)[32], uint32_t (&qhi)[4][4],
+                                       uint32_t (&qlo)[4][4], uint32_t at) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_tf32_n64(sc, qlo[ks], desc_sw128(at + 32 * ks), ks);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_tf32_n64(sc, qhi[ks], desc_sw128(at + kF32Piece + 32 * ks), 1);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_tf32_n64(sc, qhi[ks], desc_sw128(at + 32 * ks), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(sc);
+  pin(qhi);
+  pin(qlo);
+}
+__device__ __forceinline__ float (&first16(float (&d)[32]))[16] {
+  return *reinterpret_cast<float(*)[16]>(d);
+}
+// The online softmax of one chunk: keys at or past `keys` masked, the rows'
+// running maxima m raised to the chunk's, the factors a = 2^((old m - m) c)
+// by which the sums l and outputs so far shrink, e = 2^(logit c - m c) (one
+// exponential a logit), l = l a + the chunk's sum of e, and e split into
+// TF32 hi and lo A fragments of p v
+__device__ __forceinline__ void f32_softmax(float (&sc)[32], int keys,
+                                            float (&m)[2], float (&l)[2],
+                                            float (&a)[2],
+                                            uint32_t (&phi)[8][4],
+                                            uint32_t (&plo)[8][4],
+                                            const F32Thread& th) {
+  if (keys < kF32Keys) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (8 * (i / 4) + 2 * th.t + (i & 1) >= keys) sc[i] = -INFINITY;
+  }
+  float x0 = m[0], x1 = m[1];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x0 = fmaxf(x0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    x1 = fmaxf(x1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  // finite: key 0 of a chunk is a key; the first chunk's a is 2^-inf = 0
+  x0 = quad_max(x0);
+  x1 = quad_max(x1);
+  a[0] = exp2_approx((m[0] - x0) * kLog2e);
+  a[1] = exp2_approx((m[1] - x1) * kLog2e);
+  m[0] = x0;
+  m[1] = x1;
+  const float mc0 = x0 * kLog2e, mc1 = x1 * kLog2e;
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int at = F32_P(j, i);
+      const bool second = at & 2;  // row r0 + 8
+      const float e = exp2_approx(fmaf(sc[at], kLog2e, second ? -mc1 : -mc0));
+      if (second)
+        s1 += e;
+      else
+        s0 += e;
+      split_tf32(e, phi[j][i], plo[j][i]);
+    }
+  l[0] = fmaf(l[0], a[0], s0);
+  l[1] = fmaf(l[1], a[1], s1);
+}
+// o = o a + p v over the staged chunk: the chunk's product as three TF32
+// products in two accumulators of their own, p_lo v_hi then p_hi v_hi in
+// one (columns 0-31), p_hi v_lo in the other (32-63; V^T's hi and lo rows
+// one after the other), added on the fp32 pipes: 16 wgmma
+__device__ __forceinline__ void f32_pv(float (&o)[16], const float (&a)[2],
+                                       uint32_t (&phi)[8][4],
+                                       uint32_t (&plo)[8][4], uint32_t at) {
+  float d[32];
+  const uint32_t vt = at + 2 * kF32Piece;
+#pragma unroll
+  for (int i = 16; i < 32; ++i) d[i] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    wgmma_tf32_n32(first16(d), plo[j], desc_sw128(vt + vt_step(j)), j);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    wgmma_tf32_n64(d, phi[j], desc_sw128(vt + vt_step(j)), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(d);
+  pin(phi);
+  pin(plo);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    o[i] = fmaf(o[i], a[(i >> 1) & 1], d[i] + d[16 + i]);
+}
+
+// The consumers: kSplitKeys (64 rows a step): both warpgroups take the
+// step's 64 rows, warpgroup w the chunks c with c % 2 == w, and their
+// maxima, sums and outputs meet in shared memory; otherwise (128 rows a
+// step) warpgroup w takes rows [64 w, 64 w + 64) against every chunk.
+template <bool kSplitKeys>
+__device__ __forceinline__ void f32_consume(
+    const float* q, const float* k, const float* v, float* out, int lq,
+    int s, int h, int row_tiles, int first, int last, const Strides& st,
+    float scale, const F32Thread& th) {
+  constexpr int kRows = kSplitKeys ? kWgmmaRows : kF32Consumers * kWgmmaRows;
+  const int chunks = (s + kF32Keys - 1) / kF32Keys;
+  const int mine = kSplitKeys ? 0 : th.wg * kWgmmaRows;  // my first row
+  PHASE_CLOCK_START();
+  // q of the step j, in flight during the step before
+  float qnext[4][4];
+  auto fetch_q = [&](int j) {
+    const F32Tile x = f32_tile(j, kRows, row_tiles, h, q, k, v, out, st);
+    f32_fetch_q(qnext, x.q + mine * st.ql, st.ql, lq - x.row0 - mine, th);
+  };
+  fetch_q(first);
+  int n = 0;  // chunks of the block's sequence before this one
+  for (int j = first; j < last; ++j) {
+    const F32Tile x = f32_tile(j, kRows, row_tiles, h, q, k, v, out, st);
+    const int rows = lq - x.row0 - mine;  // of my 64; none if not above 0
+    uint32_t qhi[4][4], qlo[4][4];
+    f32_split_q(qhi, qlo, qnext, scale);
+    if (j + 1 < last) fetch_q(j + 1);
+    float o[16], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    PHASE_CLOCK(0);
+    for (int c = 0; c < chunks; ++c, ++n) {
+      if (kSplitKeys && c % 2 != th.wg) continue;
+      const int i = n % kF32Stages;
+      const uint32_t at = th.ring + i * kF32Stage;
+      mbar_wait(th.full + 8 * i, n / kF32Stages & 1);
+      PHASE_CLOCK(1);
+      if (rows > 0) {
+        float sc[32], a[2];
+        uint32_t phi[8][4], plo[8][4];
+        f32_qk(sc, qhi, qlo, at);
+        PHASE_CLOCK(2);
+        f32_softmax(sc, min(kF32Keys, s - c * kF32Keys), m, l, a, phi, plo,
+                    th);
+        PHASE_CLOCK(3);
+        f32_pv(o, a, phi, plo, at);
+        PHASE_CLOCK(4);
+      }
+      mbar_arrive_warp(th.empty + 8 * i);
+    }
+    if (!kSplitKeys) {
+      if (rows > 0) {
+        const float inv[2] = {1.0f / quad_sum(l[0]), 1.0f / quad_sum(l[1])};
+        float* at = x.out + (int64_t)(mine + th.r0) * st.ol + 2 * th.t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (th.r0 + 8 * r >= rows) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<float2*>(at + 8 * r * st.ol + 8 * i) =
+                make_float2(o[4 * i + 2 * r] * inv[r],
+                            o[4 * i + 2 * r + 1] * inv[r]);
+        }
+      }
+      PHASE_CLOCK(5);
+      continue;
+    }
+    // split keys: each warpgroup's maxima, sums and outputs into shared
+    // memory, then each thread merges 8 outputs of one row and stores them
+    const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+    if (th.t == 0) {
+      th.rmax[th.wg * kWgmmaRows + th.r0] = m[0];
+      th.rmax[th.wg * kWgmmaRows + th.r0 + 8] = m[1];
+      th.rsum[th.wg * kWgmmaRows + th.r0] = l0;
+      th.rsum[th.wg * kWgmmaRows + th.r0 + 8] = l1;
+    }
+    float* mine_part =
+        th.part + (th.wg * kWgmmaRows + th.r0) * kPartLd + 2 * th.t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float2*>(mine_part + 8 * i) =
+          make_float2(o[4 * i], o[4 * i + 1]);
+      *reinterpret_cast<float2*>(mine_part + 8 * kPartLd + 8 * i) =
+          make_float2(o[4 * i + 2], o[4 * i + 3]);
+    }
+    consumers_sync();
+    const int r = threadIdx.x / 4, c = threadIdx.x % 4 * 8;
+    if (r < rows) {
+      // a warpgroup that held no chunk (S up to 64) counts -inf and 0
+      const float ma = th.rmax[r], mb = th.rmax[kWgmmaRows + r];
+      const float mx = fmaxf(ma, mb);
+      const float fa = exp2_approx((ma - mx) * kLog2e);
+      const float fb = exp2_approx((mb - mx) * kLog2e);
+      const float inv = 1.0f / (th.rsum[r] * fa + th.rsum[kWgmmaRows + r] * fb);
+      const float* pa = th.part + r * kPartLd + c;
+      const float* pb = pa + kWgmmaRows * kPartLd;
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = (pa[e] * fa + pb[e] * fb) * inv;
+      float4* to = reinterpret_cast<float4*>(x.out + (int64_t)r * st.ol + c);
+      to[0] = make_float4(y[0], y[1], y[2], y[3]);
+      to[1] = make_float4(y[4], y[5], y[6], y[7]);
+    }
+    consumers_sync();  // the shared outputs are free for the next step
+    PHASE_CLOCK(5);
+  }
+}
+
+// The producer warpgroup: every chunk of the block's sequence (its steps in
+// order, each step's chunks in order) into the ring, the next chunk's loads
+// in flight while this one is split and stored
+__device__ __forceinline__ void f32_produce(
+    const float* q, const float* k, const float* v, float* out, int s, int h,
+    int row_tiles, int rows, int first, int last, const Strides& st,
+    const F32Thread& th) {
+  const int p = threadIdx.x - kF32Consumers * kWgThreads;
+  const int chunks = (s + kF32Keys - 1) / kF32Keys;
+  const int total = (last - first) * chunks;
+  if (total < 1) return;
+  auto fetch = [&](F32Chunk& x, int n) {
+    const F32Tile t = f32_tile(first + n / chunks, rows, row_tiles, h, q, k,
+                               v, out, st);
+    const int key0 = n % chunks * kF32Keys;
+    f32_fetch(x, t.k + key0 * st.ks, st.ks, t.v + key0 * st.vs, st.vs,
+              min(kF32Keys, s - key0), p);
+  };
+  PHASE_CLOCK_START();
+  auto put = [&](const F32Chunk& x, int n) {
+    const int i = n % kF32Stages;
+    mbar_wait(th.empty + 8 * i, (n / kF32Stages & 1) ^ 1);  // free at first
+    PHASE_CLOCK(0);
+    f32_put(x, th.ring + i * kF32Stage, p);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(th.full + 8 * i);
+    PHASE_CLOCK(1);
+  };
+  F32Chunk a, b;  // two, so that no copy waits for loads in flight
+  fetch(a, 0);
+  for (int n = 0; n < total; n += 2) {
+    if (n + 1 < total) fetch(b, n + 1);
+    put(a, n);
+    if (n + 1 >= total) break;
+    if (n + 2 < total) fetch(a, n + 2);
+    put(b, n + 1);
+  }
+}
+
+// Three warpgroups a block, one block an SM: two compute, one stages. The
+// block walks the steps [first, last) of the sequence (batch, head, row
+// tile of 64 rows if kSplitKeys, else 128).
+template <bool kSplitKeys>
+__global__ void __launch_bounds__(kF32Threads, 1)
+attention_kernel_tile_f32(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          float* __restrict__ out, int lq, int s, int h,
+                          int row_tiles, int tiles, Strides st, float scale) {
+  constexpr int kRows = kSplitKeys ? kWgmmaRows : kF32Consumers * kWgmmaRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(base);
+  F32Thread th;
+  th.wg = threadIdx.x / kWgThreads;
+  th.r0 = threadIdx.x % kWgThreads / 32 * 16 + threadIdx.x % 32 / 4;
+  th.t = threadIdx.x % 4;
+  th.ring = sb + F32Layout::ring;
+  th.full = sb + F32Layout::bars;
+  th.empty = th.full + 8 * kF32Stages;
+  th.part = reinterpret_cast<float*>(base + F32Layout::part);
+  th.rmax = reinterpret_cast<float*>(base + F32Layout::rmax);
+  th.rsum = reinterpret_cast<float*>(base + F32Layout::rsum);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kF32Stages; ++i) {
+      mbar_init(th.full + 8 * i, kWgThreads);
+      // a chunk's release: one arrival a warp that reads it
+      mbar_init(th.empty + 8 * i, (kSplitKeys ? 1 : kF32Consumers) * 4);
+    }
+  }
+  PHASE_CLOCKS_CLEAR();
+  __syncthreads();
+  const int share = tiles / gridDim.x, extra = tiles % gridDim.x;
+  const int first = blockIdx.x * share + min((int)blockIdx.x, extra);
+  const int last = first + share + ((int)blockIdx.x < extra);
+  if (th.wg == kF32Consumers)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                 :: "n"(kF32ProducerRegs));
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
+                 :: "n"(kF32ConsumerRegs));
+  if (th.wg == kF32Consumers)
+    f32_produce(q, k, v, out, s, h, row_tiles, kRows, first, last, st, th);
+  else
+    f32_consume<kSplitKeys>(q, k, v, out, lq, s, h, row_tiles, first, last,
+                            st, scale, th);
+  PHASE_CLOCKS_WRITE();
+}
+
+template <bool kSplitKeys>
+cudaError_t launch_tile_f32(const void* q, const void* k, const void* v,
+                            void* out, int b, int lq, int s, int h,
+                            const Strides& st, float scale,
+                            cudaStream_t stream) {
+  constexpr int kRows = kSplitKeys ? kWgmmaRows : kF32Consumers * kWgmmaRows;
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices] = {};  // 0: this device not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(attention_kernel_tile_f32<kSplitKeys>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F32Layout::bytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int row_tiles = (lq + kRows - 1) / kRows;
+  const int64_t tiles = (int64_t)b * h * row_tiles;
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>(tiles < sms[dev] ? tiles : sms[dev]);
+  attention_kernel_tile_f32<kSplitKeys>
+      <<<blocks, kF32Threads, F32Layout::bytes, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), lq, s, h,
+          row_tiles, (int)tiles, st, scale);
+  return cudaGetLastError();
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -1336,9 +1560,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                                    stream);
   } else {
     if (tile_rows == 64)
-      return launch_tile<T, 4>(q, k, v, out, b, lq, s, h, st, scale, stream);
+      return launch_tile_f32<true>(q, k, v, out, b, lq, s, h, st, scale,
+                                   stream);
     if (tile_rows == 128)
-      return launch_tile<T, 8>(q, k, v, out, b, lq, s, h, st, scale, stream);
+      return launch_tile_f32<false>(q, k, v, out, b, lq, s, h, st, scale,
+                                    stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -14,10 +14,12 @@ that needs a gradient, a key-padding mask or dropout takes
   built with ``nvcc`` for ``sm_90a`` into ``build/`` at first use and bound
   with ctypes. :func:`choose_kernel` picks by Lq: the row kernel (threads
   split the keys of one query row) up to ``ROW_MAX_LQ`` rows, the tile
-  kernel above, both products on the tensor cores: in bfloat16 on wgmma
+  kernel above, both products on the tensor cores (wgmma): in bfloat16
   with a head's K and V in shared memory and one exponential a logit, in
-  float32 on split-TF32 mma.sync. A shape, dtype or layout none takes
-  raises; nothing falls back.
+  float32 as three split-TF32 products a logit, with K and V streamed
+  through shared memory in chunks of ``F32_CHUNK_KEYS`` keys and an online
+  softmax. A shape, dtype or layout none takes raises; nothing falls
+  back.
 * On a CPU tensor it runs :func:`flash_cross_attention_plain`, the same
   arithmetic written with einsum and softmax.
 
@@ -60,10 +62,14 @@ ROW_MAX_LQ = 3
 #: beyond, the tile kernel serves few rows too, the rest of its tile masked
 ROW_MAX_KEYS = 8192
 #: query rows a block of the tile kernel takes at a time, by dtype: what was
-#: faster on the H100 at the large main-path shapes (PERF.md). float32: 16
-#: a warp; bfloat16: one or two wgmma tiles of 64 rows
-TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+#: faster on the H100 at the large main-path shapes (PERF.md). One or two
+#: wgmma tiles of 64 rows; in float32 at 64 the block's two computing
+#: warpgroups share a tile's keys
+TILE_ROWS = {torch.float32: 128, torch.bfloat16: 128}
 _TILE_ROWS_BUILT = (64, 128)
+#: keys a chunk of the float32 tile kernel: the unit of its ring in shared
+#: memory, of its online softmax and of each p v chain on the tensor cores
+F32_CHUNK_KEYS = 64
 #: keys a block of the bfloat16 tile kernel holds in shared memory (S up to
 #: this: one exponential a logit; beyond, two passes over chunks of this
 #: many), keys of them each of its two warpgroups holds, and the half of
@@ -185,25 +191,98 @@ def _split_tf32(x: torch.Tensor) -> tuple:
     return hi, _round_tf32(x - hi)
 
 
+def _split_tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor,
+                        apart: bool = False) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the float32 tile kernel forms it: each
+    operand split into TF32 pieces ``hi`` and ``lo``, and ``lo*hi + hi*lo +
+    hi*hi`` summed in fp32; ``apart``: ``lo*hi + hi*hi`` and ``hi*lo`` summed
+    apart, then added."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), _split_tf32(b)
+    if apart:
+        return ((torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_hi))
+                + torch.einsum(eq, a_hi, b_lo))
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
 def flash_cross_attention_split_tf32_emulated(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The float32 tile kernel's products in plain PyTorch, for tests: each
     operand of q k^T and of p v is split into TF32 pieces ``hi`` and ``lo``,
-    and ``lo*hi + hi*lo + hi*hi`` is summed in fp32. Nothing on any path
-    calls it."""
+    and ``lo*hi + hi*lo + hi*hi`` is summed in fp32; the softmax is the
+    plain one. Nothing on any path calls it."""
     _check(q, k, v)
     if q.dtype != torch.float32:
         raise ValueError("the split-TF32 products are the float32 path")
-
-    def product(eq, a, b):
-        (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), _split_tf32(b)
-        return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
-                + torch.einsum(eq, a_hi, b_hi))
-
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = product("bqhd,bkhd->bhqk", q * scale, k)
+    logits = _split_tf32_product("bqhd,bkhd->bhqk", q * scale, k)
     probs = torch.softmax(logits, dim=-1)
-    return product("bhqk,bkhd->bqhd", probs, v)
+    return _split_tf32_product("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_cross_attention_f32_emulated(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        tile_rows: int = 128) -> torch.Tensor:
+    """The float32 tile kernel's order of operations in plain PyTorch, for
+    tests; nothing on any path calls it.
+
+    Logits of the scaled queries as three split-TF32 products (lo*hi +
+    hi*lo + hi*hi in one sum; p v's as lo*hi + hi*hi and hi*lo apart); the
+    keys in chunks of ``F32_CHUNK_KEYS`` (past S: logit -inf, value 0),
+    taken in one sequence (``tile_rows`` 128) or in two, the even and the
+    odd chunks (``tile_rows`` 64, one a warpgroup). A sequence keeps each
+    row's running maximum m, sum l and output o: at each chunk m rises to
+    the chunk's, a = 2^((old m - m) c) with c = log2(e), e = 2^fma(logit,
+    c, -m c) (one exponential a logit), l = fma(l, a, sum e) and o = fma(o,
+    a, the chunk's split-TF32 product of e and v). One sequence ends as o *
+    (1 / l); two meet as (o_0 f_0 + o_1 f_1) * (1 / (l_0 f_0 + l_1 f_1))
+    with f_w = 2^((m_w - max m) c)."""
+    _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError("the emulation is of the float32 tile kernel")
+    if tile_rows not in _TILE_ROWS_BUILT:
+        raise ValueError(f"no tile kernel of {tile_rows} rows a block")
+    b, lq, h, hd = q.shape
+    s = k.shape[1]
+    dev = q.device
+    c = torch.tensor(math.log2(math.e), dtype=torch.float32, device=dev)
+    chunks = -(-s // F32_CHUNK_KEYS)
+    pad = chunks * F32_CHUNK_KEYS - s
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    x = torch.nn.functional.pad(
+        _split_tf32_product("bqhd,bkhd->bhqk", q * scale.to(dev), k),
+        (0, pad), value=-math.inf).view(b, h, lq, chunks, F32_CHUNK_KEYS)
+    vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).view(
+        b, chunks, F32_CHUNK_KEYS, h, hd)
+
+    def fma(a, b_, c_):  # rounded once
+        return (a.double() * b_.double() + c_.double()).float()
+
+    states = []
+    for seq in ([range(chunks)] if tile_rows == 128
+                else [range(0, chunks, 2), range(1, chunks, 2)]):
+        m = torch.full((b, h, lq), -math.inf, device=dev)
+        l = torch.zeros((b, h, lq), device=dev)
+        o = torch.zeros((b, h, lq, hd), device=dev)
+        for ch in seq:
+            m_new = torch.maximum(m, x[:, :, :, ch].amax(-1))
+            a = torch.exp2((m - m_new) * c)
+            e = torch.exp2(fma(x[:, :, :, ch], c, -(m_new * c)[..., None]))
+            l = fma(l, a, e.sum(-1))
+            o = fma(o, a[..., None], _split_tf32_product(
+                "bhqk,bkhd->bhqd", e, vs[:, ch], apart=True))
+            m = m_new
+        states.append((m, l, o))
+    if len(states) == 1:
+        m, l, o = states[0]
+        out = o * (1.0 / l)[..., None]
+    else:
+        (m0, l0, o0), (m1, l1, o1) = states
+        mx = torch.maximum(m0, m1)
+        f0, f1 = torch.exp2((m0 - mx) * c), torch.exp2((m1 - mx) * c)
+        inv = 1.0 / (l0 * f0 + l1 * f1)
+        out = (o0 * f0[..., None] + o1 * f1[..., None]) * inv[..., None]
+    return out.permute(0, 2, 1, 3).contiguous()
 
 
 def flash_cross_attention_bf16_emulated(

@@ -177,3 +177,46 @@ def test_bf16_tile_kernel_reads_a_strided_q(card, s):
     torch.cuda.synchronize()
     want = attention.flash_cross_attention_bf16_emulated(q, k, v)
     assert (got.float() - want.float()).abs().max().item() <= _EMULATED_TOL
+
+
+# the float32 tile kernel against its emulation, which takes the same steps
+# in the same order: the tensor cores add each chain of products with
+# truncation where the emulation's einsums round, and exp2 comes from the
+# special-function unit, a few fp32 ulps of a logit or an output; held to
+# 4e-06, below the 1e-5 gate
+_F32_EMULATED_TOL = 4e-6
+
+
+def _f32_on_card(card, b, lq, s):
+    return [torch.from_numpy(x).to(card)
+            for x in _inputs(b, lq, s=s, seed=lq + s)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("b,lq,s", [(2, 600, 512), (4, 8192, 512),
+                                    (128, 64, 512), (128, 257, 512),
+                                    (24, 200, 512),
+                                    # chunks of 64 keys, the last of one key
+                                    (2, 65, 1729)])
+def test_f32_tile_kernel_matches_emulation(card, b, lq, s, tile_rows):
+    q, k, v = _f32_on_card(card, b, lq, s)
+    got = attention.flash_cross_attention(q, k, v, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    want = attention.flash_cross_attention_f32_emulated(q, k, v,
+                                                        tile_rows=tile_rows)
+    assert (got - want).abs().max().item() <= _F32_EMULATED_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("s", [512, 1729])
+def test_f32_tile_kernel_reads_a_strided_q(card, s, tile_rows):
+    """q as a view of a wider projection, its rows 64 elements apart."""
+    q, k, v = _f32_on_card(card, 2, 100, s)
+    wide = torch.cat([q, q], dim=-1)[..., :32]
+    got = attention.flash_cross_attention(wide, k, v, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    want = attention.flash_cross_attention_f32_emulated(q, k, v,
+                                                        tile_rows=tile_rows)
+    assert (got - want).abs().max().item() <= _F32_EMULATED_TOL
