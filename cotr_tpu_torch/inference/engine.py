@@ -34,6 +34,7 @@ from cotr_tpu_torch.utils.constants import (BASE_ZOOM, MAX_SIZE,
                                             THRESHOLD_PIXELS_RELATIVE,
                                             THRESHOLD_SPARSE)
 from cotr_tpu_torch.utils.misc import positive_int
+from cotr_tpu_torch.utils.profiling import span
 
 
 def relative_scales(area_a: float, area_b: float) -> Tuple[float, float]:
@@ -128,30 +129,31 @@ class SparseEngine:
         """Dense seed passes for many pairs honoring the engine mode, in one
         batched device pass. Returns one (corr_a, con_a, corr_b, con_b) per
         pair at ORIGINAL image resolutions."""
-        prepped = []
-        for img_a, img_b in pairs:
-            a_shape, b_shape = img_a.shape[:2], img_b.shape[:2]
-            nonsquare = (a_shape[0] != a_shape[1] or
-                         b_shape[0] != b_shape[1])
-            if self.mode == "stretching" and nonsquare:
-                prepped.append((stretch_to_square(img_a),
-                                stretch_to_square(img_b),
-                                True, a_shape, b_shape))
-            else:
-                prepped.append((img_a, img_b, False, a_shape, b_shape))
-        raw = dense_flow_many(self.runner,
-                              [(a, b) for a, b, _, _, _ in prepped],
-                              seed_stride=self.seed_stride)
-        out = []
-        for (_, _, stretched, a_shape, b_shape), \
-                (corr_a, con_a, corr_b, con_b) in zip(prepped, raw):
-            if stretched:
-                corr_a = _resize_field(corr_a, a_shape)
-                con_a = _resize_field(con_a, a_shape)
-                corr_b = _resize_field(corr_b, b_shape)
-                con_b = _resize_field(con_b, b_shape)
-            out.append((corr_a, con_a, corr_b, con_b))
-        return out
+        with span("cotr.seed"):
+            prepped = []
+            for img_a, img_b in pairs:
+                a_shape, b_shape = img_a.shape[:2], img_b.shape[:2]
+                nonsquare = (a_shape[0] != a_shape[1] or
+                             b_shape[0] != b_shape[1])
+                if self.mode == "stretching" and nonsquare:
+                    prepped.append((stretch_to_square(img_a),
+                                    stretch_to_square(img_b),
+                                    True, a_shape, b_shape))
+                else:
+                    prepped.append((img_a, img_b, False, a_shape, b_shape))
+            raw = dense_flow_many(self.runner,
+                                  [(a, b) for a, b, _, _, _ in prepped],
+                                  seed_stride=self.seed_stride)
+            out = []
+            for (_, _, stretched, a_shape, b_shape), \
+                    (corr_a, con_a, corr_b, con_b) in zip(prepped, raw):
+                if stretched:
+                    corr_a = _resize_field(corr_a, a_shape)
+                    con_a = _resize_field(con_a, a_shape)
+                    corr_b = _resize_field(corr_b, b_shape)
+                    con_b = _resize_field(con_b, b_shape)
+                out.append((corr_a, con_a, corr_b, con_b))
+            return out
 
     def _seed_tasks(self, img_a, img_b, max_corrs, queries_a, force,
                     dense=None, rng=None):
@@ -315,70 +317,73 @@ class SparseEngine:
         takes its history candidate with the least reverse cycle error) or
         "rescue" (only queries the std/border filters flag do).
         ``_dense``: precomputed seed fields."""
-        img_a = np.asarray(img_a)
-        img_b = np.asarray(img_b)
-        if queries_a is not None:
-            queries_a = np.asarray(queries_a, np.float64).copy()
-        if cycle_select not in (False, True, "rescue"):
-            raise ValueError(f"cycle_select must be False, True or "
-                             f"'rescue', got {cycle_select!r}")
+        with span("cotr.engine.call"):
+            img_a = np.asarray(img_a)
+            img_b = np.asarray(img_b)
+            if queries_a is not None:
+                queries_a = np.asarray(queries_a, np.float64).copy()
+            if cycle_select not in (False, True, "rescue"):
+                raise ValueError(f"cycle_select must be False, True or "
+                                 f"'rescue', got {cycle_select!r}")
 
-        if areas is not None:
-            if queries_a is None or not force:
-                raise ValueError("areas needs queries_a and force=True")
-            corr = self.corr_base(img_a, img_b, queries_a)
-            loc_from, loc_to = corr[:, :2], corr[:, 2:]
-            ident = np.arange(len(corr))
-            area_a, area_b = float(areas[0]), float(areas[1])
-        else:
-            loc_from, loc_to, ident, area_a, area_b = self._seed_tasks(
-                img_a, img_b, max_corrs, queries_a, force, dense=_dense)
+            if areas is not None:
+                if queries_a is None or not force:
+                    raise ValueError("areas needs queries_a and force=True")
+                corr = self.corr_base(img_a, img_b, queries_a)
+                loc_from, loc_to = corr[:, :2], corr[:, 2:]
+                ident = np.arange(len(corr))
+                area_a, area_b = float(areas[0]), float(areas[1])
+            else:
+                loc_from, loc_to, ident, area_a, area_b = self._seed_tasks(
+                    img_a, img_b, max_corrs, queries_a, force, dense=_dense)
 
-        if len(loc_from) == 0:
-            empty = np.zeros((0, 4))
-            return (empty, np.zeros(0, int)) if return_idx else empty
+            if len(loc_from) == 0:
+                empty = np.zeros((0, 4))
+                return (empty, np.zeros(0, int)) if return_idx else empty
 
-        history = self._refine_all(img_a, img_b, loc_from, loc_to,
-                                   area_a, area_b, zoom_ins, converge_iters)
-        # Mirrors a quirk of the JAX engine: cycle_zoom = 0 is falsy and so
-        # treated as unset (the coarsest level is used instead).
-        check = self.cycle_zoom if self.cycle_zoom else zoom_ins[0]
-        best_override, cyc = None, None
-        if cycle_select == "rescue":
-            # keep the converged answer where the filters pass; spend the
-            # reverse check only on flagged queries
-            healthy = self._filter_mask(loc_from, history,
-                                        img_a.shape[:2], img_b.shape[:2])
-            flagged = np.nonzero(~healthy)[0]
-            best_override = history[-1].copy()
-            cyc = np.full((history.shape[0], len(loc_from)), np.nan)
-            if len(flagged):
-                sel, cyc_sub = self._cycle_select(
-                    img_a, img_b, loc_from[flagged], history[:, flagged],
-                    area_a, area_b, check)
-                best_override[flagged] = sel
-                cyc[:, flagged] = cyc_sub
-        elif cycle_select:
-            best_override, cyc = self._cycle_select(
-                img_a, img_b, loc_from, history, area_a, area_b, check)
-        corrs, idx = self._conclude(loc_from, history, ident,
-                                    img_a.shape[:2], img_b.shape[:2], force,
-                                    best_override=best_override)
-        if self.collect_diagnostics:
-            # what the std/border filters WOULD have kept (a force run skips
-            # them, so they are applied again with force=False)
-            _, kept = self._conclude(loc_from, history, ident,
-                                     img_a.shape[:2], img_b.shape[:2], False)
-            self.last_diag = {
-                "loc_from": loc_from.copy(), "ident": ident.copy(),
-                "history": history.copy(),  # (1 seed + Z levels, T, 2)
-                "area_a": area_a, "area_b": area_b,
-                "kept_by_filters": np.isin(ident, kept)}
-            if cycle_select:
-                self.last_diag["cycle_err"] = cyc      # (C, T)
-                self.last_diag["selected"] = best_override.copy()
-        corrs, idx = corrs[:max_corrs], idx[:max_corrs]
-        return (corrs, idx) if return_idx else corrs
+            history = self._refine_all(img_a, img_b, loc_from, loc_to,
+                                       area_a, area_b, zoom_ins,
+                                       converge_iters)
+            # Mirrors a quirk of the JAX engine: cycle_zoom = 0 is falsy and so
+            # treated as unset (the coarsest level is used instead).
+            check = self.cycle_zoom if self.cycle_zoom else zoom_ins[0]
+            best_override, cyc = None, None
+            if cycle_select == "rescue":
+                # keep the converged answer where the filters pass; spend the
+                # reverse check only on flagged queries
+                healthy = self._filter_mask(loc_from, history,
+                                            img_a.shape[:2], img_b.shape[:2])
+                flagged = np.nonzero(~healthy)[0]
+                best_override = history[-1].copy()
+                cyc = np.full((history.shape[0], len(loc_from)), np.nan)
+                if len(flagged):
+                    sel, cyc_sub = self._cycle_select(
+                        img_a, img_b, loc_from[flagged], history[:, flagged],
+                        area_a, area_b, check)
+                    best_override[flagged] = sel
+                    cyc[:, flagged] = cyc_sub
+            elif cycle_select:
+                best_override, cyc = self._cycle_select(
+                    img_a, img_b, loc_from, history, area_a, area_b, check)
+            corrs, idx = self._conclude(loc_from, history, ident,
+                                        img_a.shape[:2], img_b.shape[:2],
+                                        force, best_override=best_override)
+            if self.collect_diagnostics:
+                # what the std/border filters WOULD have kept (a force run
+                # skips them, so they are applied again with force=False)
+                _, kept = self._conclude(loc_from, history, ident,
+                                         img_a.shape[:2], img_b.shape[:2],
+                                         False)
+                self.last_diag = {
+                    "loc_from": loc_from.copy(), "ident": ident.copy(),
+                    "history": history.copy(),  # (1 seed + Z levels, T, 2)
+                    "area_a": area_a, "area_b": area_b,
+                    "kept_by_filters": np.isin(ident, kept)}
+                if cycle_select:
+                    self.last_diag["cycle_err"] = cyc      # (C, T)
+                    self.last_diag["selected"] = best_override.copy()
+            corrs, idx = corrs[:max_corrs], idx[:max_corrs]
+            return (corrs, idx) if return_idx else corrs
 
     def cotr_corr_multiscale_with_cycle_consistency(
             self, img_a, img_b, zoom_ins: Sequence[float] = (1.0,),
@@ -388,29 +393,30 @@ class SparseEngine:
         """Bidirectional matching ranked by cycle error. Both directions'
         dense seed passes depend only on the images, so they share one
         batched device pass up front."""
-        extraction_rate = 0.3
-        temp_max = int(max_corrs / extraction_rate)
-        if queries_a is not None:
-            temp_max = min(temp_max, queries_a.shape[0])
-            queries_a = np.asarray(queries_a, np.float64).copy()
-        img_a, img_b = np.asarray(img_a), np.asarray(img_b)
-        dense_f, dense_b = self._dense_fields_many([(img_a, img_b),
-                                                    (img_b, img_a)])
-        corr_f, idx_f = self.cotr_corr_multiscale(
-            img_a, img_b, zoom_ins=zoom_ins, converge_iters=converge_iters,
-            max_corrs=temp_max, queries_a=queries_a, return_idx=True,
-            _dense=dense_f)
-        if corr_f.shape[0] == 0:
-            raise RuntimeError("forward pass produced no correspondences")
-        corr_b, idx_b = self.cotr_corr_multiscale(
-            img_b, img_a, zoom_ins=zoom_ins, converge_iters=converge_iters,
-            max_corrs=corr_f.shape[0], queries_a=corr_f[:, 2:].copy(),
-            return_idx=True, _dense=dense_b)
-        if corr_b.shape[0] == 0:
-            raise RuntimeError("backward pass produced no correspondences")
-        out = _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b, max_corrs,
-                                   return_idx, return_cycle_error)
-        return out[0] if len(out) == 1 else out
+        with span("cotr.engine.call"):
+            extraction_rate = 0.3
+            temp_max = int(max_corrs / extraction_rate)
+            if queries_a is not None:
+                temp_max = min(temp_max, queries_a.shape[0])
+                queries_a = np.asarray(queries_a, np.float64).copy()
+            img_a, img_b = np.asarray(img_a), np.asarray(img_b)
+            dense_f, dense_b = self._dense_fields_many([(img_a, img_b),
+                                                        (img_b, img_a)])
+            corr_f, idx_f = self.cotr_corr_multiscale(
+                img_a, img_b, zoom_ins=zoom_ins, converge_iters=converge_iters,
+                max_corrs=temp_max, queries_a=queries_a, return_idx=True,
+                _dense=dense_f)
+            if corr_f.shape[0] == 0:
+                raise RuntimeError("forward pass produced no correspondences")
+            corr_b, idx_b = self.cotr_corr_multiscale(
+                img_b, img_a, zoom_ins=zoom_ins, converge_iters=converge_iters,
+                max_corrs=corr_f.shape[0], queries_a=corr_f[:, 2:].copy(),
+                return_idx=True, _dense=dense_b)
+            if corr_b.shape[0] == 0:
+                raise RuntimeError("backward pass produced no correspondences")
+            out = _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b, max_corrs,
+                                       return_idx, return_cycle_error)
+            return out[0] if len(out) == 1 else out
 
     # ----------------------------------------------------------- extra paths
 
@@ -424,57 +430,59 @@ class SparseEngine:
         patch-pair canvas of every job joins one encode batch (8 canvases
         per dispatch), with one forward and one cycle decode.
         Returns one (N_i, 4) corrs array per job."""
-        entries = []  # (job_idx, p_i, p_j, qn, in_patch)
-        for ji, (img_a, img_b, queries_a) in enumerate(jobs):
-            q = np.asarray(queries_a, np.float64)
-            patches_b = to_square_patches(np.asarray(img_b))
-            for p_i in to_square_patches(np.asarray(img_a)):
-                in_patch = ((q[:, 0] >= p_i.x) & (q[:, 1] >= p_i.y) &
-                            (q[:, 0] <= p_i.x + p_i.w) &
-                            (q[:, 1] <= p_i.y + p_i.h))
-                qn = np.stack([(q[:, 0] - p_i.x) / (2 * p_i.w),
-                               (q[:, 1] - p_i.y) / p_i.h], axis=1)
-                for p_j in patches_b:
-                    entries.append((ji, p_i, p_j, qn, in_patch))
+        with span("cotr.engine.call"):
+            entries = []  # (job_idx, p_i, p_j, qn, in_patch)
+            for ji, (img_a, img_b, queries_a) in enumerate(jobs):
+                q = np.asarray(queries_a, np.float64)
+                patches_b = to_square_patches(np.asarray(img_b))
+                for p_i in to_square_patches(np.asarray(img_a)):
+                    in_patch = ((q[:, 0] >= p_i.x) & (q[:, 1] >= p_i.y) &
+                                (q[:, 0] <= p_i.x + p_i.w) &
+                                (q[:, 1] <= p_i.y + p_i.h))
+                    qn = np.stack([(q[:, 0] - p_i.x) / (2 * p_i.w),
+                                   (q[:, 1] - p_i.y) / p_i.h], axis=1)
+                    for p_j in patches_b:
+                        entries.append((ji, p_i, p_j, qn, in_patch))
 
-        n_max = max(e[3].shape[0] for e in entries)
-        q_all = np.zeros((len(entries), n_max, 2), np.float32)
-        for k, (_, _, _, qn, _) in enumerate(entries):
-            q_all[k, :qn.shape[0]] = qn
+            n_max = max(e[3].shape[0] for e in entries)
+            q_all = np.zeros((len(entries), n_max, 2), np.float32)
+            for k, (_, _, _, qn, _) in enumerate(entries):
+                q_all[k, :qn.shape[0]] = qn
 
-        chunk = 8
-        outs, cycles = [], []
-        for start in range(0, len(entries), chunk):
-            sub = entries[start:start + chunk]
-            canvas = _canvases_for_jobs(
-                self.runner, [(p_i.patch, p_j.patch)
-                              for _, p_i, p_j, _, _ in sub])
-            mem = self.runner.encode(canvas)
-            out = self.runner.decode_chunked(mem, q_all[start:start + chunk])
-            cyc = self.runner.decode_chunked(mem, out)
-            outs.append(out.cpu().numpy())
-            cycles.append(cyc.cpu().numpy())
-        out_all = np.concatenate(outs, axis=0)
-        cyc_all = np.concatenate(cycles, axis=0)
+            chunk = 8
+            outs, cycles = [], []
+            for start in range(0, len(entries), chunk):
+                sub = entries[start:start + chunk]
+                canvas = _canvases_for_jobs(
+                    self.runner, [(p_i.patch, p_j.patch)
+                                  for _, p_i, p_j, _, _ in sub])
+                mem = self.runner.encode(canvas)
+                out = self.runner.decode_chunked(
+                    mem, q_all[start:start + chunk])
+                cyc = self.runner.decode_chunked(mem, out)
+                outs.append(out.cpu().numpy())
+                cycles.append(cyc.cpu().numpy())
+            out_all = np.concatenate(outs, axis=0)
+            cyc_all = np.concatenate(cycles, axis=0)
 
-        per_job = [[] for _ in jobs]
-        for k, (ji, p_i, p_j, qn, in_patch) in enumerate(entries):
-            n = qn.shape[0]
-            conf = np.linalg.norm(qn - cyc_all[k, :n], axis=1)
-            conf[~in_patch] = np.inf
-            per_job[ji].append(np.stack([
-                (out_all[k, :n, 0] - 0.5) * 2 * p_j.w + p_j.x,
-                out_all[k, :n, 1] * p_j.h + p_j.y,
-                conf,
-            ], axis=1))
-        results = []
-        for ji, (_, _, queries_a) in enumerate(jobs):
-            preds = np.stack(per_job[ji])  # (P, N, 3)
-            best = preds[np.argmin(preds[..., 2], axis=0),
-                         np.arange(preds.shape[1])]
-            results.append(np.concatenate(
-                [np.asarray(queries_a, np.float64), best[:, :2]], axis=1))
-        return results
+            per_job = [[] for _ in jobs]
+            for k, (ji, p_i, p_j, qn, in_patch) in enumerate(entries):
+                n = qn.shape[0]
+                conf = np.linalg.norm(qn - cyc_all[k, :n], axis=1)
+                conf[~in_patch] = np.inf
+                per_job[ji].append(np.stack([
+                    (out_all[k, :n, 0] - 0.5) * 2 * p_j.w + p_j.x,
+                    out_all[k, :n, 1] * p_j.h + p_j.y,
+                    conf,
+                ], axis=1))
+            results = []
+            for ji, (_, _, queries_a) in enumerate(jobs):
+                preds = np.stack(per_job[ji])  # (P, N, 3)
+                best = preds[np.argmin(preds[..., 2], axis=0),
+                             np.arange(preds.shape[1])]
+                results.append(np.concatenate(
+                    [np.asarray(queries_a, np.float64), best[:, :2]], axis=1))
+            return results
 
 
 def _to_float01(img: np.ndarray) -> np.ndarray:
@@ -629,71 +637,72 @@ class FasterSparseEngine(SparseEngine):
 
         Returns a list of per-pair corrs (max_corrs, 4), or (corrs, idx)
         tuples with ``return_idx``."""
-        n = len(pairs)
-        if n == 0:
-            return []
-        pairs = [(np.asarray(a), np.asarray(b)) for a, b in pairs]
-        if queries_list is None:
-            queries_list = [None] * n
-        queries_list = [None if q is None
-                        else np.asarray(q, np.float64).copy()
-                        for q in queries_list]
-        max_corrs_list = list(max_corrs) if np.ndim(max_corrs) else \
-            [int(max_corrs)] * n
-        rngs = _pair_streams(pair_seeds, n, self.rng)
+        with span("cotr.engine.call"):
+            n = len(pairs)
+            if n == 0:
+                return []
+            pairs = [(np.asarray(a), np.asarray(b)) for a, b in pairs]
+            if queries_list is None:
+                queries_list = [None] * n
+            queries_list = [None if q is None
+                            else np.asarray(q, np.float64).copy()
+                            for q in queries_list]
+            max_corrs_list = list(max_corrs) if np.ndim(max_corrs) else \
+                [int(max_corrs)] * n
+            rngs = _pair_streams(pair_seeds, n, self.rng)
 
-        # ---- seed (batched dense pass unless the scales are known)
-        if areas_list is not None:
-            if any(q is None for q in queries_list) or not force:
-                raise ValueError("areas_list needs queries for every pair "
-                                 "and force=True")
-            # ALL pairs' patch canvases share one batched corr_base pass
-            corrs_all = self.corr_base_many(
-                [(a, b, q) for (a, b), q in zip(pairs, queries_list)])
-            seeds = [(corr[:, :2], corr[:, 2:], np.arange(len(corr)),
-                      float(ar[0]), float(ar[1]))
-                     for corr, ar in zip(corrs_all, areas_list)]
-        else:
-            dense = self._dense_fields_many(pairs)
-            seeds = [self._seed_tasks(a, b, max_corrs_list[i], q, force,
-                                      dense=dense[i], rng=rngs[i])
-                     for i, ((a, b), q) in enumerate(zip(pairs,
-                                                         queries_list))]
+            # ---- seed (batched dense pass unless the scales are known)
+            if areas_list is not None:
+                if any(q is None for q in queries_list) or not force:
+                    raise ValueError("areas_list needs queries for every pair "
+                                     "and force=True")
+                # ALL pairs' patch canvases share one batched corr_base pass
+                corrs_all = self.corr_base_many(
+                    [(a, b, q) for (a, b), q in zip(pairs, queries_list)])
+                seeds = [(corr[:, :2], corr[:, 2:], np.arange(len(corr)),
+                          float(ar[0]), float(ar[1]))
+                         for corr, ar in zip(corrs_all, areas_list)]
+            else:
+                dense = self._dense_fields_many(pairs)
+                seeds = [self._seed_tasks(a, b, max_corrs_list[i], q, force,
+                                          dense=dense[i], rng=rngs[i])
+                         for i, ((a, b), q) in enumerate(zip(pairs,
+                                                             queries_list))]
 
-        imgs_a_dev = self._stack_images([a for a, _ in pairs])
-        imgs_b_dev = self._stack_images([b for _, b in pairs])
+            imgs_a_dev = self._stack_images([a for a, _ in pairs])
+            imgs_b_dev = self._stack_images([b for _, b in pairs])
 
-        pair_states = []
-        for i, (lf, lt, ident, area_a, area_b) in enumerate(seeds):
-            s_from, s_to = relative_scales(area_a, area_b)
-            pair_states.append(dict(
-                hw_a=pairs[i][0].shape[:2], hw_b=pairs[i][1].shape[:2],
-                s_from=s_from, s_to=s_to,
-                loc_from=np.asarray(lf, np.float64),
-                loc_to=np.asarray(lt, np.float64), rng=rngs[i]))
+            pair_states = []
+            for i, (lf, lt, ident, area_a, area_b) in enumerate(seeds):
+                s_from, s_to = relative_scales(area_a, area_b)
+                pair_states.append(dict(
+                    hw_a=pairs[i][0].shape[:2], hw_b=pairs[i][1].shape[:2],
+                    s_from=s_from, s_to=s_to,
+                    loc_from=np.asarray(lf, np.float64),
+                    loc_to=np.asarray(lt, np.float64), rng=rngs[i]))
 
-        hists = refine_grouped_pairs(
-            self._stepper, imgs_a_dev, imgs_b_dev, pair_states, zoom_ins,
-            converge_iters=converge_iters, **self._grouping())
+            hists = refine_grouped_pairs(
+                self._stepper, imgs_a_dev, imgs_b_dev, pair_states, zoom_ins,
+                converge_iters=converge_iters, **self._grouping())
 
-        results = []
-        for i, (lf, lt, ident, _, _) in enumerate(seeds):
-            if len(lf) == 0:
-                empty = np.zeros((0, 4))
-                results.append((empty, np.zeros(0, int)) if return_idx
-                               else empty)
-                continue
-            if np.isnan(hists[i]).any():
-                raise ValueError("NaN in refinement predictions")
-            self.total_tasks += hists[i].shape[0] * hists[i].shape[1]
-            history = np.concatenate(
-                [np.asarray(lt, np.float64)[None], hists[i]], axis=0)
-            corrs, idx = self._conclude(
-                np.asarray(lf, np.float64), history, ident,
-                pairs[i][0].shape[:2], pairs[i][1].shape[:2], force)
-            corrs, idx = corrs[:max_corrs_list[i]], idx[:max_corrs_list[i]]
-            results.append((corrs, idx) if return_idx else corrs)
-        return results
+            results = []
+            for i, (lf, lt, ident, _, _) in enumerate(seeds):
+                if len(lf) == 0:
+                    empty = np.zeros((0, 4))
+                    results.append((empty, np.zeros(0, int)) if return_idx
+                                   else empty)
+                    continue
+                if np.isnan(hists[i]).any():
+                    raise ValueError("NaN in refinement predictions")
+                self.total_tasks += hists[i].shape[0] * hists[i].shape[1]
+                history = np.concatenate(
+                    [np.asarray(lt, np.float64)[None], hists[i]], axis=0)
+                corrs, idx = self._conclude(
+                    np.asarray(lf, np.float64), history, ident,
+                    pairs[i][0].shape[:2], pairs[i][1].shape[:2], force)
+                corrs, idx = corrs[:max_corrs_list[i]], idx[:max_corrs_list[i]]
+                results.append((corrs, idx) if return_idx else corrs)
+            return results
 
     def cotr_corr_multiscale_with_cycle_consistency_multipair(
             self, pairs, zoom_ins: Sequence[float] = (1.0,),
@@ -705,50 +714,51 @@ class FasterSparseEngine(SparseEngine):
         (b->a) jobs do. Per-pair results match serial
         ``cotr_corr_multiscale_with_cycle_consistency`` calls on engines
         seeded ``pair_seeds[i]``."""
-        extraction_rate = 0.3
-        n = len(pairs)
-        pairs = [(np.asarray(a), np.asarray(b)) for a, b in pairs]
-        if queries_list is None:
-            queries_list = [None] * n
-        # live streams: each pair's forward seeding and refinement and then
-        # its backward ones must consume ONE stream in serial order
-        rngs = _pair_streams(pair_seeds, n, self.rng)
+        with span("cotr.engine.call"):
+            extraction_rate = 0.3
+            n = len(pairs)
+            pairs = [(np.asarray(a), np.asarray(b)) for a, b in pairs]
+            if queries_list is None:
+                queries_list = [None] * n
+            # live streams: each pair's forward seeding and refinement and then
+            # its backward ones must consume ONE stream in serial order
+            rngs = _pair_streams(pair_seeds, n, self.rng)
 
-        temp_max = []
-        q_fwd = []
-        for q in queries_list:
-            tm = int(max_corrs / extraction_rate)
-            if q is not None:
-                q = np.asarray(q, np.float64).copy()
-                tm = min(tm, q.shape[0])
-            temp_max.append(tm)
-            q_fwd.append(q)
+            temp_max = []
+            q_fwd = []
+            for q in queries_list:
+                tm = int(max_corrs / extraction_rate)
+                if q is not None:
+                    q = np.asarray(q, np.float64).copy()
+                    tm = min(tm, q.shape[0])
+                temp_max.append(tm)
+                q_fwd.append(q)
 
-        fwd = self.cotr_corr_multiscale_multipair(
-            pairs, zoom_ins=zoom_ins, converge_iters=converge_iters,
-            max_corrs=temp_max, queries_list=q_fwd, return_idx=True,
-            pair_seeds=rngs)
-        for i, (corr_f, _) in enumerate(fwd):
-            if corr_f.shape[0] == 0:
-                raise RuntimeError(
-                    f"forward pass produced no correspondences (pair {i})")
+            fwd = self.cotr_corr_multiscale_multipair(
+                pairs, zoom_ins=zoom_ins, converge_iters=converge_iters,
+                max_corrs=temp_max, queries_list=q_fwd, return_idx=True,
+                pair_seeds=rngs)
+            for i, (corr_f, _) in enumerate(fwd):
+                if corr_f.shape[0] == 0:
+                    raise RuntimeError(
+                        f"forward pass produced no correspondences (pair {i})")
 
-        bwd = self.cotr_corr_multiscale_multipair(
-            [(b, a) for a, b in pairs], zoom_ins=zoom_ins,
-            converge_iters=converge_iters,
-            max_corrs=[corr_f.shape[0] for corr_f, _ in fwd],
-            queries_list=[corr_f[:, 2:].copy() for corr_f, _ in fwd],
-            return_idx=True, pair_seeds=rngs)
+            bwd = self.cotr_corr_multiscale_multipair(
+                [(b, a) for a, b in pairs], zoom_ins=zoom_ins,
+                converge_iters=converge_iters,
+                max_corrs=[corr_f.shape[0] for corr_f, _ in fwd],
+                queries_list=[corr_f[:, 2:].copy() for corr_f, _ in fwd],
+                return_idx=True, pair_seeds=rngs)
 
-        results = []
-        for i in range(n):
-            corr_f, idx_f = fwd[i]
-            corr_b, idx_b = bwd[i]
-            if corr_b.shape[0] == 0:
-                raise RuntimeError(
-                    f"backward pass produced no correspondences (pair {i})")
-            out = _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b,
-                                       max_corrs, return_idx,
-                                       return_cycle_error)
-            results.append(out[0] if len(out) == 1 else tuple(out))
-        return results
+            results = []
+            for i in range(n):
+                corr_f, idx_f = fwd[i]
+                corr_b, idx_b = bwd[i]
+                if corr_b.shape[0] == 0:
+                    raise RuntimeError(f"backward pass produced no "
+                                       f"correspondences (pair {i})")
+                out = _rank_by_cycle_error(corr_f, idx_f, corr_b, idx_b,
+                                           max_corrs, return_idx,
+                                           return_cycle_error)
+                results.append(out[0] if len(out) == 1 else tuple(out))
+            return results

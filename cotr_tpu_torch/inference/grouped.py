@@ -41,6 +41,7 @@ from cotr_tpu_torch.ops.sampling import (crop_and_resize_matmul,
 from cotr_tpu_torch.parallel.mesh import (LocalMesh, replicate,
                                           require_local_mesh)
 from cotr_tpu_torch.utils.constants import MAX_SIZE
+from cotr_tpu_torch.utils.profiling import span
 
 SAFE_AREA = 0.5
 # ladder-mode dispatch budget: canvases x padded members per device call.
@@ -346,16 +347,20 @@ def _grouped_zoom_step(stepper, img_a_dev, img_b_dev, loc_from, loc_to,
     """
     h_a, w_a = hw_a
     h_b, w_b = hw_b
-    squad_of, pilots = form_squads(loc_from, loc_to, active, scale_f, scale_t,
-                                   (h_a, w_a), (h_b, w_b), max_load, rng,
-                                   safe_area=safe_area, impl=squads_impl)
-    g = len(pilots)
-    if g == 0:
-        return 0
-    x0f_all, y0f_all, sf = patch_box_np(loc_from[pilots], scale_f, h_a, w_a)
-    x0t_all, y0t_all, st = patch_box_np(loc_to[pilots], scale_t, h_b, w_b)
-    ids_full, q_full, counts = _squad_tables(loc_from, squad_of, g,
-                                             x0f_all, y0f_all, sf)
+    with span("cotr.squad.form"):
+        squad_of, pilots = form_squads(loc_from, loc_to, active, scale_f,
+                                       scale_t, (h_a, w_a), (h_b, w_b),
+                                       max_load, rng, safe_area=safe_area,
+                                       impl=squads_impl)
+        g = len(pilots)
+        if g == 0:
+            return 0
+        x0f_all, y0f_all, sf = patch_box_np(loc_from[pilots], scale_f, h_a,
+                                            w_a)
+        x0t_all, y0t_all, st = patch_box_np(loc_to[pilots], scale_t, h_b,
+                                            w_b)
+        ids_full, q_full, counts = _squad_tables(loc_from, squad_of, g,
+                                                 x0f_all, y0f_all, sf)
     m_cap = ids_full.shape[1]
 
     # dispatch every chunk first (device queue), read afterwards. Ladder
@@ -463,33 +468,36 @@ def refine_grouped(runner, stepper: GroupedStepper, img_a_dev, hw_a,
     degenerates (every task its own squad) the encoder's per-canvas
     attention buffers would otherwise grow with the task count.
     """
-    t = len(loc_from)
-    loc_to = loc_to0.astype(np.float64).copy()
-    history = []
-    n_levels = len(zoom_ins)
+    with span("cotr.squad.refine"):
+        t = len(loc_from)
+        loc_to = loc_to0.astype(np.float64).copy()
+        history = []
+        n_levels = len(zoom_ins)
 
-    for zi, zoom in enumerate(zoom_ins):
-        scale_f, scale_t = s_from * zoom, s_to * zoom
-        is_final = zi == n_levels - 1
-        iters = converge_iters if is_final else 1
-        active = np.ones(t, bool)
-        zoom_hist = np.zeros((iters, t, 2))
+        for zi, zoom in enumerate(zoom_ins):
+            scale_f, scale_t = s_from * zoom, s_to * zoom
+            is_final = zi == n_levels - 1
+            iters = converge_iters if is_final else 1
+            active = np.ones(t, bool)
+            zoom_hist = np.zeros((iters, t, 2))
 
-        for it in range(iters):
-            if not active.any():
-                break
-            _grouped_zoom_step(stepper, img_a_dev, img_b_dev, loc_from,
-                               loc_to, active, scale_f, scale_t, hw_a, hw_b,
-                               rng, max_load, group_bucket, member_bucket,
-                               group_cap, safe_area=safe_area,
-                               member_ladder=member_ladder,
-                               squads_impl=squads_impl)
-            if not is_final:
-                break
-            active = _settle_final_zoom(loc_to, zoom_hist, active, it, iters)
-        history.append(loc_to.copy())
+            for it in range(iters):
+                if not active.any():
+                    break
+                _grouped_zoom_step(stepper, img_a_dev, img_b_dev, loc_from,
+                                   loc_to, active, scale_f, scale_t, hw_a,
+                                   hw_b, rng, max_load, group_bucket,
+                                   member_bucket, group_cap,
+                                   safe_area=safe_area,
+                                   member_ladder=member_ladder,
+                                   squads_impl=squads_impl)
+                if not is_final:
+                    break
+                active = _settle_final_zoom(loc_to, zoom_hist, active, it,
+                                            iters)
+            history.append(loc_to.copy())
 
-    return np.stack(history, axis=0)
+        return np.stack(history, axis=0)
 
 
 def refine_grouped_pairs(stepper: GroupedStepper, imgs_a_dev, imgs_b_dev,
@@ -519,138 +527,140 @@ def refine_grouped_pairs(stepper: GroupedStepper, imgs_a_dev, imgs_b_dev,
     Returns one (len(zoom_ins), T_p, 2) history per pair (refine_grouped
     semantics).
     """
-    n_pairs = len(pairs)
-    n_levels = len(zoom_ins)
-    locs = [np.asarray(p["loc_to"], np.float64).copy() for p in pairs]
-    loc_froms = [np.asarray(p["loc_from"], np.float64) for p in pairs]
-    histories: list = [[] for _ in range(n_pairs)]
+    with span("cotr.squad.refine"):
+        n_pairs = len(pairs)
+        n_levels = len(zoom_ins)
+        locs = [np.asarray(p["loc_to"], np.float64).copy() for p in pairs]
+        loc_froms = [np.asarray(p["loc_from"], np.float64) for p in pairs]
+        histories: list = [[] for _ in range(n_pairs)]
 
-    for zi, zoom in enumerate(zoom_ins):
-        is_final = zi == n_levels - 1
-        iters = converge_iters if is_final else 1
-        actives = [np.ones(len(lf), bool) for lf in loc_froms]
-        zoom_hists = [np.zeros((iters, len(lf), 2)) for lf in loc_froms]
+        for zi, zoom in enumerate(zoom_ins):
+            is_final = zi == n_levels - 1
+            iters = converge_iters if is_final else 1
+            actives = [np.ones(len(lf), bool) for lf in loc_froms]
+            zoom_hists = [np.zeros((iters, len(lf), 2)) for lf in loc_froms]
 
-        for it in range(iters):
-            if not any(a.any() for a in actives):
-                break
-            # ---- per-pair squad formation, concatenated dispatch tables
-            per_pair = []
-            m_cap = 1
-            for pi, p in enumerate(pairs):
-                active = actives[pi]
-                if not active.any():
-                    continue
-                h_a, w_a = p["hw_a"]
-                h_b, w_b = p["hw_b"]
-                scale_f = p["s_from"] * zoom
-                scale_t = p["s_to"] * zoom
-                squad_of, pilots = form_squads(
-                    loc_froms[pi], locs[pi], active, scale_f, scale_t,
-                    (h_a, w_a), (h_b, w_b), max_load, p["rng"],
-                    safe_area=safe_area, impl=squads_impl)
-                g = len(pilots)
-                if g == 0:
-                    continue
-                x0f, y0f, sf = patch_box_np(loc_froms[pi][pilots], scale_f,
-                                            h_a, w_a)
-                x0t, y0t, st = patch_box_np(locs[pi][pilots], scale_t,
-                                            h_b, w_b)
-                ids_full, q_full, counts = _squad_tables(
-                    loc_froms[pi], squad_of, g, x0f, y0f, sf)
-                m_cap = max(m_cap, ids_full.shape[1])
-                boxes_f = np.stack([x0f, y0f, np.full(g, sf),
-                                    np.full(g, sf)], axis=1)
-                boxes_t = np.stack([x0t, y0t, np.full(g, st),
-                                    np.full(g, st)], axis=1)
-                per_pair.append((pi, boxes_f, boxes_t, ids_full, q_full,
-                                 counts, st))
-            if not per_pair:
-                for pi in range(n_pairs):
-                    zoom_hists[pi][it] = locs[pi]
-                continue
-
-            g_tot = sum(len(e[1]) for e in per_pair)
-            boxes_f = np.zeros((g_tot, 4), np.float32)
-            boxes_t = np.zeros((g_tot, 4), np.float32)
-            idx = np.zeros(g_tot, np.int32)
-            ids_all = np.full((g_tot, m_cap), -1, int)
-            q_all = np.zeros((g_tot, m_cap, 2), np.float32)
-            counts_all = np.zeros(g_tot, int)
-            st_rows = np.zeros(g_tot)
-            at = 0
-            for pi, bf, bt, ids_full, q_full, counts, st in per_pair:
-                g = len(bf)
-                boxes_f[at:at + g] = bf
-                boxes_t[at:at + g] = bt
-                idx[at:at + g] = pi
-                ids_all[at:at + g, :ids_full.shape[1]] = ids_full
-                q_all[at:at + g, :q_full.shape[1]] = q_full
-                counts_all[at:at + g] = counts
-                st_rows[at:at + g] = st
-                at += g
-
-            # ---- chunked dispatch (the padding of _grouped_zoom_step)
-            inflight = []
-            for start in range(0, g_tot, group_cap):
-                end = min(start + group_cap, g_tot)
-                gc = end - start
-                m_max = max(int(counts_all[start:end].max()), 1)
-                m_pad = _member_pad(m_max, max_load, member_bucket,
-                                    member_ladder)
-                g_pad = group_bucket if gc <= group_bucket else group_cap
-
-                queries = np.zeros((g_pad, m_pad, 2), np.float32)
-                member_ids = np.full((g_pad, m_pad), -1, int)
-                mc = min(m_cap, m_pad)
-                queries[:gc, :mc] = q_all[start:end, :mc]
-                member_ids[:gc, :mc] = ids_all[start:end, :mc]
-                bf = np.zeros((g_pad, 4), np.float32)
-                bt = np.zeros((g_pad, 4), np.float32)
-                ix = np.zeros(g_pad, np.int32)
-                bf[:gc] = boxes_f[start:end]
-                bt[:gc] = boxes_t[start:end]
-                ix[:gc] = idx[start:end]
-                # padding boxes take the chunk's largest patch size at
-                # (0, 0) of pair 0, so the ladder window covers them; their
-                # results are ignored
-                bf[gc:, 2:] = boxes_f[start:end, 2].max() if gc else 1.0
-                bt[gc:, 2:] = boxes_t[start:end, 2].max() if gc else 1.0
-
-                preds_dev = stepper.dispatch_indexed(imgs_a_dev, imgs_b_dev,
-                                                     ix, bf, bt, queries)
-                x0t_r = np.zeros(g_pad)
-                y0t_r = np.zeros(g_pad)
-                st_r = np.ones(g_pad)
-                pr = np.full(g_pad, -1, int)
-                x0t_r[:gc] = boxes_t[start:end, 0]
-                y0t_r[:gc] = boxes_t[start:end, 1]
-                st_r[:gc] = st_rows[start:end]
-                pr[:gc] = idx[start:end]
-                inflight.append((preds_dev, member_ids, x0t_r, y0t_r, st_r,
-                                 pr))
-
-            for preds_dev, member_ids, x0t_r, y0t_r, st_r, pr in inflight:
-                preds = _to_host(preds_dev)
-                new_x = (preds[..., 0] - 0.5) * 2 * st_r[:, None] \
-                    + x0t_r[:, None]
-                new_y = preds[..., 1] * st_r[:, None] + y0t_r[:, None]
-                for pi in np.unique(pr):
-                    if pi < 0:
+            for it in range(iters):
+                if not any(a.any() for a in actives):
+                    break
+                # ---- per-pair squad formation, concatenated dispatch tables
+                with span("cotr.squad.form"):
+                    per_pair = []
+                    m_cap = 1
+                    for pi, p in enumerate(pairs):
+                        active = actives[pi]
+                        if not active.any():
+                            continue
+                        h_a, w_a = p["hw_a"]
+                        h_b, w_b = p["hw_b"]
+                        scale_f = p["s_from"] * zoom
+                        scale_t = p["s_to"] * zoom
+                        squad_of, pilots = form_squads(
+                            loc_froms[pi], locs[pi], active, scale_f, scale_t,
+                            (h_a, w_a), (h_b, w_b), max_load, p["rng"],
+                            safe_area=safe_area, impl=squads_impl)
+                        g = len(pilots)
+                        if g == 0:
+                            continue
+                        x0f, y0f, sf = patch_box_np(loc_froms[pi][pilots],
+                                                    scale_f, h_a, w_a)
+                        x0t, y0t, st = patch_box_np(locs[pi][pilots], scale_t,
+                                                    h_b, w_b)
+                        ids_full, q_full, counts = _squad_tables(
+                            loc_froms[pi], squad_of, g, x0f, y0f, sf)
+                        m_cap = max(m_cap, ids_full.shape[1])
+                        boxes_f = np.stack([x0f, y0f, np.full(g, sf),
+                                            np.full(g, sf)], axis=1)
+                        boxes_t = np.stack([x0t, y0t, np.full(g, st),
+                                            np.full(g, st)], axis=1)
+                        per_pair.append((pi, boxes_f, boxes_t, ids_full,
+                                         q_full, counts, st))
+                    if not per_pair:
+                        for pi in range(n_pairs):
+                            zoom_hists[pi][it] = locs[pi]
                         continue
-                    rows = pr == pi
-                    sel = member_ids[rows] >= 0
-                    locs[pi][member_ids[rows][sel], 0] = new_x[rows][sel]
-                    locs[pi][member_ids[rows][sel], 1] = new_y[rows][sel]
 
-            if not is_final:
-                break
-            # ---- per-pair final-zoom convergence (refine_grouped's rule)
+                    g_tot = sum(len(e[1]) for e in per_pair)
+                    boxes_f = np.zeros((g_tot, 4), np.float32)
+                    boxes_t = np.zeros((g_tot, 4), np.float32)
+                    idx = np.zeros(g_tot, np.int32)
+                    ids_all = np.full((g_tot, m_cap), -1, int)
+                    q_all = np.zeros((g_tot, m_cap, 2), np.float32)
+                    counts_all = np.zeros(g_tot, int)
+                    st_rows = np.zeros(g_tot)
+                    at = 0
+                    for pi, bf, bt, ids_full, q_full, counts, st in per_pair:
+                        g = len(bf)
+                        boxes_f[at:at + g] = bf
+                        boxes_t[at:at + g] = bt
+                        idx[at:at + g] = pi
+                        ids_all[at:at + g, :ids_full.shape[1]] = ids_full
+                        q_all[at:at + g, :q_full.shape[1]] = q_full
+                        counts_all[at:at + g] = counts
+                        st_rows[at:at + g] = st
+                        at += g
+
+                # ---- chunked dispatch (the padding of _grouped_zoom_step)
+                inflight = []
+                for start in range(0, g_tot, group_cap):
+                    end = min(start + group_cap, g_tot)
+                    gc = end - start
+                    m_max = max(int(counts_all[start:end].max()), 1)
+                    m_pad = _member_pad(m_max, max_load, member_bucket,
+                                        member_ladder)
+                    g_pad = group_bucket if gc <= group_bucket else group_cap
+
+                    queries = np.zeros((g_pad, m_pad, 2), np.float32)
+                    member_ids = np.full((g_pad, m_pad), -1, int)
+                    mc = min(m_cap, m_pad)
+                    queries[:gc, :mc] = q_all[start:end, :mc]
+                    member_ids[:gc, :mc] = ids_all[start:end, :mc]
+                    bf = np.zeros((g_pad, 4), np.float32)
+                    bt = np.zeros((g_pad, 4), np.float32)
+                    ix = np.zeros(g_pad, np.int32)
+                    bf[:gc] = boxes_f[start:end]
+                    bt[:gc] = boxes_t[start:end]
+                    ix[:gc] = idx[start:end]
+                    # padding boxes take the chunk's largest patch size at
+                    # (0, 0) of pair 0, so the ladder window covers them; their
+                    # results are ignored
+                    bf[gc:, 2:] = boxes_f[start:end, 2].max() if gc else 1.0
+                    bt[gc:, 2:] = boxes_t[start:end, 2].max() if gc else 1.0
+
+                    preds_dev = stepper.dispatch_indexed(
+                        imgs_a_dev, imgs_b_dev, ix, bf, bt, queries)
+                    x0t_r = np.zeros(g_pad)
+                    y0t_r = np.zeros(g_pad)
+                    st_r = np.ones(g_pad)
+                    pr = np.full(g_pad, -1, int)
+                    x0t_r[:gc] = boxes_t[start:end, 0]
+                    y0t_r[:gc] = boxes_t[start:end, 1]
+                    st_r[:gc] = st_rows[start:end]
+                    pr[:gc] = idx[start:end]
+                    inflight.append((preds_dev, member_ids, x0t_r, y0t_r, st_r,
+                                     pr))
+
+                for preds_dev, member_ids, x0t_r, y0t_r, st_r, pr in inflight:
+                    preds = _to_host(preds_dev)
+                    new_x = (preds[..., 0] - 0.5) * 2 * st_r[:, None] \
+                        + x0t_r[:, None]
+                    new_y = preds[..., 1] * st_r[:, None] + y0t_r[:, None]
+                    for pi in np.unique(pr):
+                        if pi < 0:
+                            continue
+                        rows = pr == pi
+                        sel = member_ids[rows] >= 0
+                        locs[pi][member_ids[rows][sel], 0] = new_x[rows][sel]
+                        locs[pi][member_ids[rows][sel], 1] = new_y[rows][sel]
+
+                if not is_final:
+                    break
+                # ---- per-pair final-zoom convergence (refine_grouped's rule)
+                for pi in range(n_pairs):
+                    actives[pi] = _settle_final_zoom(
+                        locs[pi], zoom_hists[pi], actives[pi], it, iters)
+
             for pi in range(n_pairs):
-                actives[pi] = _settle_final_zoom(
-                    locs[pi], zoom_hists[pi], actives[pi], it, iters)
+                histories[pi].append(locs[pi].copy())
 
-        for pi in range(n_pairs):
-            histories[pi].append(locs[pi].copy())
-
-    return [np.stack(h, axis=0) for h in histories]
+        return [np.stack(h, axis=0) for h in histories]

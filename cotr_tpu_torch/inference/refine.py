@@ -35,6 +35,7 @@ from cotr_tpu_torch.parallel.mesh import (LocalMesh, replicate,
                                           require_local_mesh, shard_batch)
 from cotr_tpu_torch.utils.constants import MAX_SIZE
 from cotr_tpu_torch.utils.misc import positive_int
+from cotr_tpu_torch.utils.profiling import span
 
 
 def patch_box(pos: torch.Tensor, scale, h, w
@@ -211,38 +212,41 @@ class BatchRefiner:
         (h, w) in ``hw_a`` / ``hw_b``; only the [:h, :w] view is read, so a
         padded image gives the answers of the unpadded one. With a mesh, T
         must be a multiple of its size (the engine pads)."""
-        img_a = _true_extent(img_a, hw_a)
-        img_b = _true_extent(img_b, hw_b)
-        zooms = zoom_schedule(zoom_ins, converge_iters)
-        final_start = len(zoom_ins) - 1
-        loc_from = torch.as_tensor(np.asarray(loc_from), dtype=torch.float32)
-        loc_to0 = torch.as_tensor(np.asarray(loc_to0), dtype=torch.float32)
-        if self.mesh is None:
-            dev = self.runner.device
-            history = refine_loop(
-                self.runner.forward, img_a, img_b, loc_from.to(dev),
-                loc_to0.to(dev), s_from, s_to, zooms, final_start,
-                crop_dtype=self.crop_dtype)
-            self.device_task_count[0] += len(loc_from)
-            return history.cpu().numpy()
-        if len(loc_from) % self.shards:
-            raise ValueError(f"{len(loc_from)} tasks do not split over the "
-                             f"mesh's {self.shards} devices; pad them to a "
-                             "multiple")
-        if self._models is None:
-            self._models = replicate(self.runner.model, self.mesh,
-                                     home=self.runner.device)
-        froms = shard_batch(loc_from, self.mesh)
-        tos = shard_batch(loc_to0, self.mesh)
-        imgs_a = replicate(img_a, self.mesh)
-        imgs_b = replicate(img_b, self.mesh)
-        # every share is enqueued before any is read back
-        shares = []
-        for i, model in enumerate(self._models):
-            shares.append(refine_loop(
-                lambda canvas, queries, m=model: m.decode(m.encode(canvas),
-                                                          queries),
-                imgs_a[i], imgs_b[i], froms[i], tos[i], s_from, s_to,
-                zooms, final_start, crop_dtype=self.crop_dtype))
-            self.device_task_count[i] += len(froms[i])
-        return np.concatenate([h.cpu().numpy() for h in shares], axis=1)
+        with span("cotr.scan.refine"):
+            img_a = _true_extent(img_a, hw_a)
+            img_b = _true_extent(img_b, hw_b)
+            zooms = zoom_schedule(zoom_ins, converge_iters)
+            final_start = len(zoom_ins) - 1
+            loc_from = torch.as_tensor(np.asarray(loc_from),
+                                       dtype=torch.float32)
+            loc_to0 = torch.as_tensor(np.asarray(loc_to0),
+                                      dtype=torch.float32)
+            if self.mesh is None:
+                dev = self.runner.device
+                history = refine_loop(
+                    self.runner.forward, img_a, img_b, loc_from.to(dev),
+                    loc_to0.to(dev), s_from, s_to, zooms, final_start,
+                    crop_dtype=self.crop_dtype)
+                self.device_task_count[0] += len(loc_from)
+                return history.cpu().numpy()
+            if len(loc_from) % self.shards:
+                raise ValueError(f"{len(loc_from)} tasks do not split over "
+                                 f"the mesh's {self.shards} devices; pad "
+                                 "them to a multiple")
+            if self._models is None:
+                self._models = replicate(self.runner.model, self.mesh,
+                                         home=self.runner.device)
+            froms = shard_batch(loc_from, self.mesh)
+            tos = shard_batch(loc_to0, self.mesh)
+            imgs_a = replicate(img_a, self.mesh)
+            imgs_b = replicate(img_b, self.mesh)
+            # every share is enqueued before any is read back
+            shares = []
+            for i, model in enumerate(self._models):
+                shares.append(refine_loop(
+                    lambda canvas, queries, m=model: m.decode(m.encode(canvas),
+                                                              queries),
+                    imgs_a[i], imgs_b[i], froms[i], tos[i], s_from, s_to,
+                    zooms, final_start, crop_dtype=self.crop_dtype))
+                self.device_task_count[i] += len(froms[i])
+            return np.concatenate([h.cpu().numpy() for h in shares], axis=1)

@@ -34,6 +34,7 @@ from cotr_tpu_torch.parallel.tp import shard_model
 from cotr_tpu_torch.training.loss import cotr_loss
 from cotr_tpu_torch.training.optim import Optimizer, build_optimizer
 from cotr_tpu_torch.utils.device import resolve_device
+from cotr_tpu_torch.utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -151,21 +152,26 @@ def make_train_step(cfg: TrainConfig,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
-        model, optimizer = state.model, state.optimizer
-        model.train()
-        canvas, queries, targets, weights = batch_views(
-            batch, cfg, generator=generator)
-        optimizer.zero_grad()
-        loss, metrics = cotr_loss(
-            model, canvas, queries, targets, cycle_consis=cfg.cycle_consis,
-            bidirectional=cfg.bidirectional, generator=generator,
-            weights=weights, reduce=reduce)
-        loss.backward()
-        if mesh is not None:
-            reduce_gradients(model.parameters(), mesh)
-        optimizer.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return TrainState(state.step + 1, model, optimizer), metrics
+        with span("cotr.train.step"):
+            model, optimizer = state.model, state.optimizer
+            model.train()
+            with span("cotr.train.forward"):
+                canvas, queries, targets, weights = batch_views(
+                    batch, cfg, generator=generator)
+                optimizer.zero_grad()
+                loss, metrics = cotr_loss(
+                    model, canvas, queries, targets,
+                    cycle_consis=cfg.cycle_consis,
+                    bidirectional=cfg.bidirectional, generator=generator,
+                    weights=weights, reduce=reduce)
+            with span("cotr.train.backward"):
+                loss.backward()
+                if mesh is not None:
+                    reduce_gradients(model.parameters(), mesh)
+            with span("cotr.train.optimizer"):
+                optimizer.step()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return TrainState(state.step + 1, model, optimizer), metrics
 
     return train_step
 
