@@ -2825,8 +2825,7 @@ def phase_triage_dense(attention) -> dict:
             device="cuda")
     split = report["phase_split_one_call_s"]
     phase_sum = (split["canvas_build_upload"] + split["device_pass"]
-                 + 2 * (split["field_resize_fetch_per_side"]
-                        + split["merge_per_side"]))
+                 + split["map_resize_merge_on_device"] + split["fetch"])
     share = phase_sum / split["call_wall"]
     of_median = split["call_wall"] / report["median_s"]
     record.update(report=report, phase_sum_s=phase_sum, split_share=share,
@@ -2834,7 +2833,7 @@ def phase_triage_dense(attention) -> dict:
     log(f"[triage-dense] dense_flow on 1024 x 1024, bfloat16: median "
         f"{report['median_s']:.3f} s (IQR {report['iqr_s']}), "
         f"{report['q_s_median']:.0f} queries/s; the median split call "
-        f"{split}: its phases, both sides summed, {phase_sum:.3f} s = "
+        f"{split}: its phases summed, {phase_sum:.3f} s = "
         f"{share:.3f} of its wall; its wall {of_median:.3f} of the trials' "
         f"median")
     log_counts("triage-dense", record)

@@ -3,10 +3,12 @@
 
 * one canvas encode, then the (256/s, 512/s) query grid decoded in chunks;
 * cycle confidence samples the predicted flow field through itself;
-* patch tiling (:func:`to_square_patches`) and min-confidence merging
-  (:func:`merge_flow_patches`) are host numpy around the device passes; the
-  patch-to-frame affines (closed form) and PIL's field resize run on the
-  device, where the JAX package ran them on the host with PIL;
+* patch tiling (:func:`to_square_patches`) is host numpy before the
+  device passes; the patch-to-frame affines (closed form), PIL's field
+  resize and the min-confidence merge run on the device after them, where
+  the JAX package ran them on the host with PIL and numpy, and each call's
+  merged fields come back in one copy per frame shape
+  (:func:`merge_flow_patches` stays as the host form of the merge);
 * :func:`dense_pass` is one such pass over one square pair, and
   :func:`warp_by_flow` resamples an image through a field.
 """
@@ -152,17 +154,6 @@ def _patch_affine(p: ImagePatch) -> Tuple[np.ndarray, np.ndarray]:
     return np.array([sx, sy]), np.array([tx, ty])
 
 
-def field_to_frame(field: torch.Tensor, affine, p: ImagePatch) -> np.ndarray:
-    """One side's patch-local field (h, w, 3) on the device -> the host
-    field at the patch's size: predictions mapped to global [-1, 1] of the
-    other image (float64 arithmetic, stored back in float32), PIL's resize
-    on the device, then the copy to the host."""
-    s, t = (torch.from_numpy(a).to(field.device) for a in affine)
-    field = torch.cat([(field[..., :2].double() * s + t).float(),
-                       field[..., 2:]], dim=-1)
-    return resize_pil(field, (p.h, p.w)).cpu().numpy()
-
-
 def merge_flow_patches(corrs: List[ImagePatch]
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Min-confidence merge of per-patch flow fields into the full frame.
@@ -188,12 +179,106 @@ def merge_flow_patches(corrs: List[ImagePatch]
     return flow, confidence, cmap
 
 
+def _job_affines(jobs, device) -> torch.Tensor:
+    """(J, 2, 2, 2) float64 on ``device``: for each job (pair, p_i, p_j)
+    and side (a, then b), the scale and shift of :func:`_patch_affine` of
+    the patch that side predicts into (p_j for a, p_i for b). One upload,
+    made before the device passes are queued, so it waits for none of
+    them."""
+    aff = np.array([[_patch_affine(p_j), _patch_affine(p_i)]
+                    for _, p_i, p_j in jobs])
+    return torch.from_numpy(aff).to(device)
+
+
+def _merge_on_device(fields: List[Tuple[ImagePatch, torch.Tensor]]
+                     ) -> torch.Tensor:
+    """:func:`merge_flow_patches` of one side on the fields' device, to the
+    bit: (patch, (h, w, 3) field) in job order -> the (oh, ow, 3) frame.
+    The frame starts at confidence 100 and flow 0; each patch takes its
+    window where its confidence is strictly lower, so ties keep the earlier
+    patch and a NaN confidence never wins. One patch covering the frame is
+    the frame, as it is there."""
+    p0, f0 = fields[0]
+    if len(fields) == 1 and (p0.x, p0.y, p0.w, p0.h) == (0, 0, p0.ow, p0.oh):
+        return f0
+    frame = f0.new_zeros((p0.oh, p0.ow, 3))
+    frame[..., 2] = 100.0
+    for p, f in fields:
+        win = frame[p.y:p.y + p.h, p.x:p.x + p.w]
+        win.copy_(torch.where(f[..., 2:] < win[..., 2:], f, win))
+    return frame
+
+
+@torch.inference_mode()
+def _frames_on_device(corr_all: torch.Tensor, jobs, affines: torch.Tensor,
+                      n_pairs: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Every job's two patch-local fields (``corr_all``, (J, h, 2h, 3)) to
+    the frames of their images, on their device: predictions mapped to the
+    other image's global [-1, 1] by the patch affine (float64 arithmetic,
+    stored in float32), PIL's resize of each field to its patch's size (one
+    field at a time, as the host path resized them), then the
+    min-confidence merge of each pair's side. Returns (frame_a, frame_b)
+    per pair; nothing is copied to the host and ``corr_all`` is not
+    written."""
+    half = corr_all.shape[2] // 2
+    # side a's columns take side a's affine, side b's columns side b's
+    scale, shift = (affines[:, :, i].repeat_interleave(half, dim=1)[:, None]
+                    for i in (0, 1))
+    mapped = torch.cat([(corr_all[..., :2].double() * scale + shift).float(),
+                        corr_all[..., 2:]], dim=-1)
+    sides = [([], []) for _ in range(n_pairs)]
+    for k, (pi, p_i, p_j) in enumerate(jobs):
+        for side, p in enumerate((p_i, p_j)):
+            field = mapped[k, :, side * half:(side + 1) * half]
+            sides[pi][side].append((p, resize_pil(field, (p.h, p.w))))
+    return [(_merge_on_device(a), _merge_on_device(b)) for a, b in sides]
+
+
+def _copy_to_host(t: torch.Tensor) -> torch.Tensor:
+    """Start ``t``'s copy to the host without waiting for it: into a pinned
+    buffer from the card; a CPU tensor is already there."""
+    if t.device.type == "cpu":
+        return t
+    return torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=True).copy_(t, non_blocking=True)
+
+
+def _fetch_fields(frames) -> List[Tuple]:
+    """Per pair (frame_a, frame_b), (h, w, 3) float32 on the device -> per
+    pair (corr_a, con_a, corr_b, con_b), float64 numpy of shapes (h, w, 2)
+    and (h, w). The frames of one shape are cast to float64 on the device
+    and laid out as [flow | confidence] per frame, so each returned array is
+    a contiguous view of one host buffer; one copy per frame shape, and one
+    wait for all of them."""
+    groups = {}
+    for pi, pair in enumerate(frames):
+        for side, f in enumerate(pair):
+            groups.setdefault(tuple(f.shape[:2]), []).append((pi, side))
+    copies = []
+    for (h, w), members in groups.items():
+        stack = torch.stack([frames[pi][side] for pi, side in members])
+        flat = torch.cat([stack[..., :2].reshape(len(members), -1),
+                          stack[..., 2].reshape(len(members), -1)], dim=1)
+        copies.append((h, w, members, _copy_to_host(flat.double())))
+    device = frames[0][0].device
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    out = [[None] * 4 for _ in frames]
+    for h, w, members, host in copies:
+        for row, (pi, side) in zip(host.numpy(), members):
+            out[pi][2 * side] = row[:2 * h * w].reshape(h, w, 2)
+            out[pi][2 * side + 1] = row[2 * h * w:].reshape(h, w)
+    return [tuple(o) for o in out]
+
+
 def dense_flow_many(runner: ModelRunner, pairs, canvas_batch: int = 8,
                     seed_stride: int = 1) -> List[Tuple]:
     """Dense flow over many image pairs: every patch-pair canvas of every
     pair joins one device batch (chunked to ``canvas_batch``); the affine
-    mapping, field resize and min-confidence merge stay per pair on the
-    host. Returns one (corr_a, con_a, corr_b, con_b) tuple per pair."""
+    mapping, field resize and min-confidence merge run on the device
+    (:func:`_frames_on_device`), and the call's merged fields come to the
+    host in one copy per frame shape (:func:`_fetch_fields`). Returns one
+    (corr_a, con_a, corr_b, con_b) tuple of float64 arrays per pair."""
     if seed_stride < 1 or MAX_SIZE % seed_stride:
         raise ValueError(f"seed_stride must divide MAX_SIZE={MAX_SIZE}, "
                          f"got {seed_stride}")
@@ -202,6 +287,7 @@ def dense_flow_many(runner: ModelRunner, pairs, canvas_batch: int = 8,
         for p_i in to_square_patches(img_a):
             for p_j in to_square_patches(img_b):
                 jobs.append((pi, p_i, p_j))
+    affines = _job_affines(jobs, runner.device)
 
     outs = []
     for start in range(0, len(jobs), canvas_batch):
@@ -209,25 +295,9 @@ def dense_flow_many(runner: ModelRunner, pairs, canvas_batch: int = 8,
         canvas = _canvases_for_jobs(
             runner, [(p_i.patch, p_j.patch) for _, p_i, p_j in chunk])
         outs.append(dense_pass_device(runner, canvas, seed_stride))
-    corr_all = torch.cat(outs, dim=0)
-
-    per_pair_a: List[List[ImagePatch]] = [[] for _ in pairs]
-    per_pair_b: List[List[ImagePatch]] = [[] for _ in pairs]
-    half = MAX_SIZE // seed_stride
-    for k, (pi, p_i, p_j) in enumerate(jobs):
-        c_i = field_to_frame(corr_all[k, :, :half], _patch_affine(p_j), p_i)
-        c_j = field_to_frame(corr_all[k, :, half:], _patch_affine(p_i), p_j)
-        per_pair_a[pi].append(ImagePatch(c_i, p_i.x, p_i.y, p_i.w, p_i.h,
-                                         p_i.ow, p_i.oh))
-        per_pair_b[pi].append(ImagePatch(c_j, p_j.x, p_j.y, p_j.w, p_j.h,
-                                         p_j.ow, p_j.oh))
-
-    results = []
-    for pi in range(len(pairs)):
-        corr_a, con_a, _ = merge_flow_patches(per_pair_a[pi])
-        corr_b, con_b, _ = merge_flow_patches(per_pair_b[pi])
-        results.append((corr_a, con_a, corr_b, con_b))
-    return results
+    frames = _frames_on_device(torch.cat(outs, dim=0), jobs, affines,
+                               len(pairs))
+    return _fetch_fields(frames)
 
 
 def dense_flow(runner: ModelRunner, img_a: np.ndarray, img_b: np.ndarray):

@@ -28,6 +28,7 @@ cotr_tpu/ops/sampling.py), images in HWC layout.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -291,16 +292,22 @@ def crop_and_resize_window_indexed(images: torch.Tensor, boxes, idx,
     return out.float()
 
 
+@functools.lru_cache(maxsize=32)
 def _pil_axis_weights_full(in_size: int, out_size: int,
-                           device) -> torch.Tensor:
-    """(out, in) float64 PIL-BILINEAR weights over a whole axis."""
+                           device: torch.device) -> torch.Tensor:
+    """(out, in) float64 PIL-BILINEAR weights over a whole axis, uploaded
+    once for each (in, out, device) and shared after that (read, never
+    written): an upload from pageable memory waits for the device, so
+    making them anew would stall every resize behind the work queued
+    before it. Made outside inference mode, so autograd may save them."""
     scale = in_size / out_size
     filt = max(scale, 1.0)
     centers = (np.arange(out_size) + 0.5) * scale
     d = np.abs(np.arange(in_size)[None, :] + 0.5 - centers[:, None]) / filt
     w = np.maximum(0.0, 1.0 - d)
     w = w / np.maximum(w.sum(-1, keepdims=True), 1e-8)
-    return torch.from_numpy(w).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(w).to(device)
 
 
 def resize_pil(img: torch.Tensor, shape_hw: Tuple[int, int]) -> torch.Tensor:

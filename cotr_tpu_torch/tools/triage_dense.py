@@ -15,13 +15,15 @@ wall, in the port's own phases:
   device_pass                  ``dense_pass_device``: encode, the
                                131,072-query decode and the cycle
                                confidence;
-  field_resize_fetch_per_side  ``field_to_frame``: the patch affine and
-                               PIL's resize of one side's field on the
-                               device, then its copy to the host (the JAX
-                               tool fetches the whole dense field, then
-                               times ``_resize_field_host``, PIL on the
-                               host);
-  merge_per_side               ``merge_flow_patches`` of one side;
+  map_resize_merge_on_device   ``_frames_on_device``: every field's patch
+                               affine, PIL's resize to its patch and the
+                               min-confidence merge of each side, on the
+                               device (the JAX tool fetches the whole dense
+                               field, then times ``_resize_field_host``,
+                               PIL on the host, and the numpy merge);
+  fetch                        ``_fetch_fields``: the merged fields cast to
+                               float64 and copied to the host, one copy per
+                               frame shape and one wait;
   call_wall                    the wall of that call, its phases and
                                what lies between them.
 
@@ -88,8 +90,8 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> dict:
     sq_b = imr.randint(0, 255, (args.side, args.side, 3), dtype=np.uint8)
 
     origs = {name: getattr(dense, name) for name in (
-        "_canvases_for_jobs", "dense_pass_device", "field_to_frame",
-        "merge_flow_patches")}
+        "_canvases_for_jobs", "dense_pass_device", "_frames_on_device",
+        "_fetch_fields")}
 
     def split_call():
         """One call with its stage functions timed where it runs them:
@@ -145,9 +147,9 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> dict:
         "phase_split_one_call_s": {
             "canvas_build_upload": round(phases["_canvases_for_jobs"], 3),
             "device_pass": round(phases["dense_pass_device"], 3),
-            "field_resize_fetch_per_side": round(
-                phases["field_to_frame"] / 2, 3),
-            "merge_per_side": round(phases["merge_flow_patches"] / 2, 3),
+            "map_resize_merge_on_device": round(
+                phases["_frames_on_device"], 3),
+            "fetch": round(phases["_fetch_fields"], 3),
             "call_wall": round(split_wall, 3),
         },
     }

@@ -4,8 +4,8 @@ stub of tests/test_torch_common.py at a small size.
 
 * triage_dense: the same report keys; the phase split names the port's own
   phases, timed inside a dense_flow call after each trial (the field
-  resize runs on the device, where the JAX tool times PIL's resize on the
-  host).
+  resize and merge run on the device, where the JAX tool times PIL's
+  resize and the merge on the host).
 * triage_multipair: the same report keys and the same cost-centre call
   counts as the JAX tool at seed strides 1 and 4; the dispatch count equals
   the engine's own ``dispatch_count`` for the same calls.
@@ -79,19 +79,19 @@ def test_triage_dense_reports_the_jax_tools_keys(monkeypatch, capsys,
     assert set(got) == set(want)
     assert got["trials"] == 3 and len(got["wall_s_all"]) == 3
     assert got["q_s_median"] > 0
-    # the port's phases: the dense field is not fetched whole, but each
-    # side's resized field is
+    # the port's phases: the dense field is not fetched whole; the fields
+    # are mapped, resized and merged on the device, and the merged ones
+    # fetched
     assert set(want["phase_split_one_call_s"]) == {
         "canvas_build_upload", "device_pass", "fetch",
         "host_resize_per_side", "merge_per_side"}
     split = got["phase_split_one_call_s"]
     assert set(split) == {"canvas_build_upload", "device_pass",
-                          "field_resize_fetch_per_side", "merge_per_side",
-                          "call_wall"}
+                          "map_resize_merge_on_device", "fetch", "call_wall"}
     assert all(v >= 0 for v in split.values())
     assert split["call_wall"] >= split["device_pass"]
     # the split wrapped dense_flow's stages for its calls and put them back
-    assert dense.field_to_frame.__name__ == "field_to_frame"
+    assert dense._frames_on_device.__name__ == "_frames_on_device"
 
 
 @pytest.mark.parametrize("stride", [1, 4])
