@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build, all at once, into build/: the attention kernels
-   (csrc/attention.cu, nvcc, sm_90a), the squad formation
+   (csrc/attention.cu, nvcc, sm_90a), the optimizer's Adam
+   (csrc/adam.cu, nvcc, sm_90a), the squad formation
    (csrc/squads.cpp) and the MegaDepth data path's loops (csrc/depth.cpp),
    the last two with the host C++ compiler; the native squad formation
    must equal the numpy scan exactly on 10,000 generated tasks;
@@ -48,7 +49,13 @@ Phases (any failure exits non-zero):
     must change nothing but the step count), five steps with
     ``lr_backbone=1e-5`` (layer2/3 convolutions move, the stem, layer1 and
     FrozenBN do not) and a few in bfloat16, each with its time a step and
-    its peak memory;
+    its peak memory. ``[adam]``: the 30 steps launch the optimizer's Adam
+    kernels (csrc/adam.cu) twice a step; after them, copies of the
+    trainer's weights, gradients and optimizer state take 3 steps through
+    the kernels (``Optimizer.step``) and through their plain version
+    (``Optimizer.step_plain``), which must agree to the bit on weights,
+    moments and counters; then each kernel's device time from a CUDA-graph
+    replay beside its bytes bound;
 11. the evaluation step on that batch, through the kernels, beside the
     einsum path;
 12. a checkpoint that a fresh Trainer resumes to the same next step, and
@@ -146,10 +153,11 @@ Phases (any failure exits non-zero):
     closer to A than B is; then ``ops.crop_and_resize`` on the card
     against the CPU (64 boxes of a 768 x 1024 image, out 256);
 27. one JSON line describing each kernel (the tile kernel and the row
-    kernel, in float32 and in bfloat16), each with its own launches on the
-    paths, then the device line last.
+    kernel, in float32 and in bfloat16, each with its own launches on the
+    paths; the two Adam kernels, each with its launches in the 30 training
+    steps), then the device line last.
 
-The kernel's launch counts are set to 0 just before each path and read just
+The kernels' launch counts are set to 0 just before each path and read just
 after it.
 
 It imports nothing of JAX or the JAX package. Without a card, or without
@@ -161,6 +169,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import functools
 import json
@@ -253,6 +262,10 @@ TRAIN_TENSOR_FLOOR = 1e-4
 # terms that nearly cancel, which float32 resolves ten times worse
 TRAIN_PARITY_SHIFT = 0.03
 TRAIN_STEPS = 30
+# [adam]: steps of the Adam kernels and their plain version on copies of
+# the trained state, and graph-replayed launches a kernel timing
+ADAM_STEPS = 3
+ADAM_TIMED_LAUNCHES = 20
 # the first steps pay for cuDNN's choice of algorithms and the allocator
 TRAIN_WARMUP_STEPS = 3
 # the evaluation step through the kernels vs the einsum path, float32
@@ -514,15 +527,16 @@ def exp_rate_per_s() -> float:
 
 
 def phase_build(attention, native, grouped) -> dict:
-    """The three sources at once, each by its own compiler; then the native
+    """The four sources at once, each by its own compiler; then the native
     squad formation against the numpy scan."""
     def timed(build, *args):
         t0 = time.perf_counter()
         return build(*args), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(timed, attention.build_library)]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(timed, native.build_cuda_library, name)
+                for name in native.CUDA_SOURCES]
         jobs += [pool.submit(timed, native.build_library, name)
                  for name in native.SOURCES]
         built = [job.result() for job in jobs]
@@ -1368,7 +1382,14 @@ def phase_train(attention, mods, batch, out_dir) -> tuple:
     cfg = mods.COTRConfig()
     train_cfg = mods.TrainConfig(valid_iter=10 ** 9)
     trainer = make_trainer(mods, cfg, train_cfg, batch, out_dir)
+    mods.optim.launches = 0
     main_run = run_steps(attention, trainer, TRAIN_STEPS, "train")
+    main_run["adam_launches"] = mods.optim.launches
+    if main_run["adam_launches"] != 2 * TRAIN_STEPS:
+        raise AssertionError(f"[adam] {TRAIN_STEPS} steps launched the Adam "
+                             f"kernels {main_run['adam_launches']} times, "
+                             f"not twice a step")
+    adam = phase_adam(mods, trainer)
     first = float(np.mean(main_run["losses"][:5]))
     last = float(np.mean(main_run["losses"][-5:]))
     log(f"[train] full width, batch {batch['crop'].shape[0]}, "
@@ -1426,7 +1447,143 @@ def phase_train(attention, mods, batch, out_dir) -> tuple:
     del bf16
     torch.cuda.empty_cache()
     return trainer, dict(main=main_run, first5_mean=first, last5_mean=last,
-                         lr_backbone=backbone_run, bfloat16=bf16_run)
+                         lr_backbone=backbone_run, bfloat16=bf16_run,
+                         adam=adam)
+
+
+def adam_copy(mods, opt) -> tuple:
+    """(parameters, optimizer): copies of ``opt``'s trainable weights,
+    their gradients and its state, in an optimizer of their own."""
+    named = {}
+    for name, p in opt.params.items():
+        if p.grad is None:
+            raise AssertionError(f"[adam] {name} has no gradient after the "
+                                 f"main path's step")
+        named[name] = torch.nn.Parameter(p.detach().clone())
+        named[name].grad = p.grad.clone()
+    twin = mods.optim.Optimizer(opt.cfg, named)
+    twin.load_state_dict(opt.state_dict())
+    return named, twin
+
+
+def ulps_apart(got, want) -> tuple:
+    """(values that differ, most units in the last place between them) of
+    two float32 tensors, bit for bit."""
+    diff = (got.contiguous().view(torch.int32).long()
+            - want.contiguous().view(torch.int32).long()).abs()
+    return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
+
+
+def phase_adam(mods, trainer) -> dict:
+    """The Adam kernels against their plain version at the published
+    model's shapes, from the state the main path's last step left: the
+    trainer's trainable weights, gradients and optimizer state copied
+    twice, ADAM_STEPS steps of ``Optimizer.step`` on one copy and of
+    ``Optimizer.step_plain`` on the other, every weight, moment and counter
+    held equal to the bit. Then on the kernels' copy each kernel's device
+    time (from ADAM_TIMED_LAUNCHES launches captured in a CUDA graph)
+    beside its bytes bound, and a step's wall time back to back beside the
+    plain step's."""
+    optim = mods.optim
+    opt = trainer.state.optimizer
+    (k_named, k_opt), (p_named, p_opt) = adam_copy(mods, opt), \
+        adam_copy(mods, opt)
+    for _ in range(ADAM_STEPS):
+        k_opt.step()
+        p_opt.step_plain()
+    torch.cuda.synchronize()
+    differ, worst = [], 0
+    for name in k_named:
+        for kind, got, want in (
+                ("w", k_named[name].detach(), p_named[name].detach()),
+                ("mu", k_opt.mu[name], p_opt.mu[name]),
+                ("nu", k_opt.nu[name], p_opt.nu[name])):
+            n, ulp = ulps_apart(got, want)
+            if n:
+                differ.append(f"{kind}[{name}]: {n}")
+                worst = max(worst, ulp)
+    counters = {c: (int(getattr(k_opt, c)), int(getattr(p_opt, c)))
+                for c in ("count", "notfinite_count", "total_notfinite",
+                          "last_finite")}
+    tensors = len(k_named)
+    elements = sum(p.numel() for p in k_named.values())
+    log(f"[adam] {ADAM_STEPS} steps from the main path's state (Adam count "
+        f"{int(opt.count)}), {tensors} tensors, {elements} parameters: "
+        f"kernels vs step_plain, values that differ: {len(differ)} tensors "
+        f"{differ[:4]}, at most {worst} ulp; counters (kernels, plain) "
+        f"{counters}")
+    if differ or any(a != b for a, b in counters.values()):
+        raise AssertionError("[adam] the kernels do not equal step_plain to "
+                             "the bit")
+
+    def timed_wall(step, calls=10) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    step_ms = timed_wall(k_opt.step)
+    plain_ms = timed_wall(p_opt.step_plain)
+    lib = optim._library()
+    step = k_opt._kernel_step()
+    n_chunks = len(k_opt._chunks) // 2
+
+    def finite():
+        lib.cotr_adam_finite(
+            k_opt._table.data_ptr(), tensors, n_chunks, optim.KERNEL_CHUNK,
+            k_opt._flag.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    def update():
+        lib.cotr_adam_update(
+            k_opt._table.data_ptr(), tensors, n_chunks, optim.KERNEL_CHUNK,
+            ctypes.byref(step), torch.cuda.current_stream().cuda_stream)
+
+    record = dict(steps=ADAM_STEPS, from_count=int(opt.count),
+                  tensors=tensors, elements=elements, differ=len(differ),
+                  max_ulp=worst, step_wall_ms=step_ms,
+                  plain_step_wall_ms=plain_ms)
+    # The update streams 28 B an element (reads g, w, mu, nu; writes w, mu,
+    # nu), far past the card's 50 MB L2, so its replays read memory. The
+    # check reads g alone, 4 B an element, which fits in L2: replayed on
+    # its own it would read L2 after the first launch. So it is timed as a
+    # step runs it, before an update, and its time is the pair's less the
+    # update's.
+    update_ms = graph_ms(update, ADAM_TIMED_LAUNCHES)
+    pair_ms = graph_ms(lambda: (finite(), update()), ADAM_TIMED_LAUNCHES)
+    for name, ms, per_element in (("adam_finite", pair_ms - update_ms, 4),
+                                  ("adam_update", update_ms, 28)):
+        bound = per_element * elements / PEAK_BYTES_PER_S * 1e3
+        record[name] = dict(ms=ms, bound_ms=bound,
+                            bytes=per_element * elements)
+        log(f"[adam] {name}: {ms:.4f} ms on the card (graph replay), bytes "
+            f"bound {bound:.4f} ms ({per_element} B an element from "
+            f"memory)")
+    log(f"[adam] a step back to back: {step_ms:.3f} ms through the kernels, "
+        f"{plain_ms:.3f} ms through step_plain")
+    del k_named, k_opt, p_named, p_opt
+    torch.cuda.empty_cache()
+    return record
+
+
+def adam_kernel_entries(train: dict) -> list:
+    """The ``kernels`` line's entries of the two Adam kernels: each
+    launched once a step of the main training path."""
+    adam = train["adam"]
+    launches = train["main"]["adam_launches"] // 2
+    return [dict(
+        name=f"{name}, float32", kernel=name, route="cuda",
+        source="cotr_tpu_torch/csrc/adam.cu",
+        replaces="cotr_tpu/training/optim.py:69", dtype="float32",
+        launches=launches,
+        launches_by_path={"training, 30 steps (the einsum path)": launches},
+        max_ulp=adam["max_ulp"], ms=adam[name]["ms"],
+        bound_ms=adam[name]["bound_ms"], bound_by="bytes",
+        bytes=adam[name]["bytes"], step_wall_ms=adam["step_wall_ms"],
+        plain_step_wall_ms=adam["plain_step_wall_ms"],
+        timed_at=f"{adam['tensors']} tensors, {adam['elements']} float32 "
+                 f"parameters") for name in ("adam_finite", "adam_update")]
 
 
 def phase_eval_step(attention, mods, trainer, batch) -> dict:
@@ -3268,6 +3425,7 @@ def main() -> int:
     from cotr_tpu_torch.models.cotr import build_model
     from cotr_tpu_torch.ops import attention, sampling
     from cotr_tpu_torch.training import loss as loss_mod
+    from cotr_tpu_torch.training import optim as optim_mod
     from cotr_tpu_torch.training import train_step as train_step_mod
     from cotr_tpu_torch.training.trainer import Trainer
     from cotr_tpu_torch.data.loader import PrefetchLoader
@@ -3286,7 +3444,8 @@ def main() -> int:
         load_flagship=checkpoint_io.load_flagship,
         save_params_npz=checkpoint_io.save_params_npz,
         make_eval_step=train_step_mod.make_eval_step,
-        PrefetchLoader=PrefetchLoader, PhaseTimer=PhaseTimer)
+        PrefetchLoader=PrefetchLoader, PhaseTimer=PhaseTimer,
+        optim=optim_mod)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3501,6 +3660,7 @@ def main() -> int:
             ("bfloat16", "tile", "attention_kernel_tile_bf16", (8, 8192)),
             ("bfloat16", "row", "attention_kernel_row<__nv_bfloat16>",
              (256, 1)))]
+    kernels += adam_kernel_entries(train)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, build=build, crops=crops, forward=forward,

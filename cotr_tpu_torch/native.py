@@ -1,9 +1,12 @@
 """ctypes bindings of the port's host-side C++: ``csrc/squads.cpp`` (the
 squad engine's squad formation) and ``csrc/depth.cpp`` (the MegaDepth data
-path's correspondence synthesis, valid-depth count and images.txt parser).
+path's correspondence synthesis, valid-depth count and images.txt parser);
+and the build of its CUDA sources (``csrc/attention.cu``, bound in
+``ops/attention.py``; ``csrc/adam.cu``, bound in ``training/optim.py``).
 
-Each library is compiled with the host C++ compiler into ``build/`` at first
-use, under a name that carries its source's hash, and loaded from there.
+Each library is compiled into ``build/`` at first use, under a name that
+carries its source's hash, and loaded from there: the host sources with the
+host C++ compiler, the CUDA ones with ``nvcc`` for ``sm_90a``.
 Every function here builds or raises: nothing falls back to numpy. The
 caller that wants the numpy path asks for it
 (``inference.grouped.form_squads(..., impl="numpy")``,
@@ -26,6 +29,9 @@ import numpy as np
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its source
 SOURCES = {"squads": _CSRC / "squads.cpp", "depth": _CSRC / "depth.cpp"}
+#: CUDA library name -> its source
+CUDA_SOURCES = {"attention": _CSRC / "attention.cu",
+                "adam": _CSRC / "adam.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 
 _libs = {}
@@ -41,19 +47,43 @@ def _compiler() -> str:
                        "the sources in csrc/ cannot be built")
 
 
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "CUDA kernels cannot be built")
+
+
 def build_library(name: str = "squads") -> Path:
     """Compile the source of library ``name`` (a key of :data:`SOURCES`)
     into ``build/`` unless a library built from the same source is already
     there. Returns its path."""
-    source = SOURCES[name]
+    return _build(name, SOURCES[name], lambda: [
+        _compiler(), "-O3", "-std=c++17", "-shared", "-fPIC"])
+
+
+def build_cuda_library(name: str) -> Path:
+    """Compile the CUDA source of library ``name`` (a key of
+    :data:`CUDA_SOURCES`) for sm_90a into ``build/`` unless a library built
+    from the same source is already there. Returns its path."""
+    return _build(name, CUDA_SOURCES[name], lambda: [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC"])
+
+
+def _build(name: str, source: Path, compiler) -> Path:
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
     out = _BUILD_DIR / f"libcotr_{name}_{digest}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-o",
-           str(tmp), str(source)]
+    cmd = compiler() + ["-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}):\n"

@@ -35,21 +35,15 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from cotr_tpu_torch import native
 from cotr_tpu_torch.ops.dropout import dropout
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 32  # d_model / nheads of every COTR configuration in use
 
@@ -87,43 +81,11 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                       "attention kernel cannot be built")
-
-
-def build_library() -> Path:
-    """Compile ``csrc/attention.cu`` for sm_90a into ``build/`` unless a
-    library built from the same source is already there. Returns its path."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libcotr_attention_{digest}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
+            lib = ctypes.CDLL(str(native.build_cuda_library("attention")))
             fn = lib.cotr_flash_attention
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                            + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,

@@ -6,6 +6,10 @@ Tolerance: parameters after each update within 1e-6 absolute (float32; the
 updates are of the size of the rate, 1e-2 here).
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,7 @@ from torch import nn
 from cotr_tpu import TrainConfig as JaxTrainConfig
 from cotr_tpu.models.checkpoint_io import _flatten
 from cotr_tpu.training import optim as jax_optim
+from cotr_tpu_torch import native
 from cotr_tpu_torch.config import TrainConfig
 from cotr_tpu_torch.models.checkpoint_io import params_from_flax
 from cotr_tpu_torch.training import optim as port_optim
@@ -206,6 +211,130 @@ def test_optimizer_state_round_trip_and_mismatch():
     bad = dict(saved, mu={"transformer.w": saved["mu"]["transformer.w"]})
     with pytest.raises(ValueError, match="optimizer state holds mu"):
         opt2.load_state_dict(bad)
+
+
+def test_a_cpu_step_takes_the_loop_and_builds_no_kernel(monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CPU step asked for the CUDA library")
+
+    monkeypatch.setattr(native, "build_cuda_library", refuse)
+    monkeypatch.setattr(native, "_nvcc", refuse)
+    monkeypatch.setattr(port_optim, "_library", refuse)
+    jparams, tx, state, named, opt = _toy(SCHEDULES["cosine"])
+    before = port_optim.launches
+    rng = np.random.RandomState(5)
+    for _ in range(3):
+        gw, gc = _grads(rng)
+        jparams, state = _jax_update(tx, state, jparams, gw, gc)
+        _port_update(named, opt, gw, gc)
+    _assert_same(jparams, named)
+    assert port_optim.launches == before
+
+
+def test_a_reload_into_the_same_optimizer_then_a_step_equals_unbroken_steps():
+    _, _, _, named, opt = _toy(SCHEDULES["cosine"])
+    _, _, _, unbroken, opt_u = _toy(SCHEDULES["cosine"])
+    rng = np.random.RandomState(6)
+    steps = [_grads(rng, nan=nan) for nan in (False, True, False)]
+    for gw, gc in steps[:2]:
+        _port_update(named, opt, gw, gc)
+        _port_update(unbroken, opt_u, gw, gc)
+    saved = opt.state_dict()
+    weights = {k: p.detach().clone() for k, p in named.items()}
+    for _ in range(2):
+        _port_update(named, opt, *_grads(rng))
+    opt.load_state_dict(saved)
+    for k, p in named.items():
+        p.data.copy_(weights[k])
+    _port_update(named, opt, *steps[2])
+    _port_update(unbroken, opt_u, *steps[2])
+    for k in named:
+        assert torch.equal(named[k].detach(), unbroken[k].detach())
+        assert torch.equal(opt.mu[k], opt_u.mu[k])
+        assert torch.equal(opt.nu[k], opt_u.nu[k])
+    assert int(opt.count) == int(opt_u.count) == 2
+    assert int(opt.total_notfinite) == int(opt_u.total_notfinite) == 1
+
+
+def test_state_dict_shares_no_tensor_with_the_live_state():
+    """The card's step updates the state in place, so a kept state dict
+    holds copies."""
+    _, _, _, named, opt = _toy(SCHEDULES["constant"])
+    _port_update(named, opt, *_grads(np.random.RandomState(7)))
+    saved = opt.state_dict()
+    live = [opt.count, opt.notfinite_count, opt.total_notfinite,
+            opt.last_finite, *opt.mu.values(), *opt.nu.values()]
+    kept = [saved["count"], saved["notfinite_count"],
+            saved["total_notfinite"], saved["last_finite"],
+            *saved["mu"].values(), *saved["nu"].values()]
+    ptrs = {t.untyped_storage().data_ptr() for t in live}
+    assert not ptrs & {t.untyped_storage().data_ptr() for t in kept}
+    for a, b in zip(live, kept):
+        assert torch.equal(a, b)
+
+
+def _adam_step_fields():
+    """(name, ctypes type) of each field of ``csrc/adam.cu``'s
+    ``struct AdamStep``, read from the source."""
+    source = (Path(native.__file__).parent / "csrc" / "adam.cu").read_text()
+    body = re.search(r"struct AdamStep \{(.*?)\};", source, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    scalars = {"int": ctypes.c_int, "float": ctypes.c_float}
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        kind, pointer, names = re.fullmatch(
+            r"(unsigned int|int|float|bool)\s*(\*?)\s*(.+)", decl,
+            re.S).groups()
+        for name in (n.strip() for n in names.split(",")):
+            count = re.fullmatch(r"(\w+)\[(\d+)\]", name)
+            ctype = ctypes.c_void_p if pointer else scalars[kind]
+            if count:
+                name, ctype = count.group(1), ctype * int(count.group(2))
+            fields.append((name, ctype))
+    return fields
+
+
+def test_the_step_mirror_lays_out_as_the_kernels_struct():
+    """``optim._Step`` passes ``AdamStep`` to the kernel by pointer: the
+    same fields, in the same order, at the same offsets. The library checks
+    it again at load, on the card."""
+    fields = _adam_step_fields()
+
+    class FromSource(ctypes.Structure):
+        _fields_ = fields
+
+    assert [n for n, _ in fields] == \
+        [n for n, _ in port_optim._Step._fields_]
+    want = [ctypes.sizeof(FromSource)] + [getattr(FromSource, n).offset
+                                          for n, _ in fields]
+    assert port_optim._step_layout() == want
+
+    def kind(ctype):
+        if issubclass(ctype, ctypes.Array):
+            return ctype._type_._type_, ctype._length_
+        return ctype._type_
+
+    for (name, ctype), (_, mine) in zip(fields,
+                                        port_optim._Step._fields_):
+        assert kind(ctype) == kind(mine), name
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_a_library_whose_struct_differs_is_refused(shift):
+    want = port_optim._step_layout()
+
+    class Library:
+        @staticmethod
+        def cotr_adam_step_layout(out):
+            for i, v in enumerate(want):
+                out[i] = v + (shift if i == len(want) - 1 else 0)
+            return len(want)
+
+    if shift:
+        with pytest.raises(RuntimeError, match="AdamStep"):
+            port_optim._check_step_layout(Library)
+    else:
+        port_optim._check_step_layout(Library)
 
 
 def test_unknown_schedule_raises():
