@@ -8,6 +8,18 @@ its step counted up; the dropout masks come from a ``torch.Generator`` on the
 model's device, and the same generator state gives the same step. Nothing in
 a step reads a value back on the host.
 
+On one card a step is replayed as a CUDA graph: the first call with a new
+signature (the batch's keys, shapes, dtypes and devices; the model, the
+optimizer and the generator; the addresses of the model's parameters and
+buffers) runs eagerly and warms up; the second captures the batch's
+canvas, the forward, the cycle forward, the loss and the backward in one
+``torch.cuda.CUDAGraph`` and replays it; every later call copies the batch
+into the graph's inputs and replays it. The generator is registered with
+the graph, so a replay draws the masks an eager step would and moves the
+generator as far. Adam's two launches run after the replay, as on an eager
+step. Off the card, on a mesh and with the model's ``remat`` (its generator
+``get_state``/``set_state`` cannot be captured) every step runs eagerly.
+
 On a mesh each rank holds its rows of the global batch. The loss is
 normalized by the global counts (``training.loss.cotr_loss``'s ``reduce``),
 so the gradients are SUMMED over the data axis, through one flat buffer:
@@ -18,6 +30,7 @@ each rank's parameter part with the ranks that hold the same part. With a
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -131,6 +144,40 @@ def reduce_gradients(params, mesh: ProcessMesh, axis: str = "data") -> None:
         offset += n
 
 
+class _StepGraph(NamedTuple):
+    """One captured step: the graph, its batch (copied into before each
+    replay), its metrics and the gradients it writes, each parameter with
+    its own."""
+    graph: "torch.cuda.CUDAGraph"
+    batch: Dict[str, torch.Tensor]
+    metrics: Dict[str, torch.Tensor]
+    grads: Tuple[Tuple[torch.nn.Parameter, torch.Tensor], ...]
+
+
+def _on_card(device: torch.device) -> bool:
+    return device.type == "cuda"
+
+
+def _graph_signature(model: COTRModel, optimizer: Optimizer,
+                     batch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator]
+                     ) -> Optional[tuple]:
+    """What a captured step is kept under, or None where a step runs
+    eagerly: off the card and with the model's ``remat``. A new batch
+    layout or shape, a new model, optimizer or generator object, or a
+    parameter or buffer at a new address is a new signature."""
+    device = optimizer.count.device
+    if not _on_card(device) or model.transformer.remat:
+        return None
+    layout = tuple((k, tuple(v.shape), v.dtype, v.device)
+                   for k, v in sorted(batch.items()))
+    if any(dev != device for *_, dev in layout):
+        return None
+    return (id(model), id(optimizer), id(generator), layout,
+            tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                        model.buffers())))
+
+
 def make_train_step(cfg: TrainConfig,
                     mesh: Optional[ProcessMesh] = None) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics).
@@ -140,39 +187,108 @@ def make_train_step(cfg: TrainConfig,
     :func:`batch_canvas` or the candidate layout of :func:`batch_views`
     (whose scores come from ``generator`` before the dropout masks do).
     metrics: ``loss``, ``corr_loss``, ``cycle_loss``
-    (device scalars), ``pred`` and ``target``, all detached.
+    (device scalars), ``pred`` and ``target``, all detached; on a replayed
+    step copies, which later steps leave as they are.
 
     With a process ``mesh``: B is this rank's rows; the metrics' losses are
     the global batch's, ``pred`` and ``target`` this rank's. Each rank draws
-    its masks from its own ``generator`` (seeded apart on the data axis)."""
+    its masks from its own ``generator`` (seeded apart on the data axis).
+
+    On one card the step is a CUDA graph from a signature's second call on
+    (the module's docstring). The graphs of one step function share one
+    memory pool. ``train_step.counts`` counts the steps by path:
+    ``captures``, ``replays`` (the capturing call's own included) and
+    ``eager``; ``train_step.eager`` runs one step eagerly whatever the
+    signature."""
     reduce = None
     if mesh is not None:
         mesh = require_process_mesh(mesh, "make_train_step")
         reduce = _reduce_over(mesh)
+    graphs: Dict[tuple, _StepGraph] = {}
+    #: signatures whose first call has run, each with its model, optimizer
+    #: and generator, kept alive so that the ids in it name no other object
+    warmed: Dict[tuple, tuple] = {}
+    pool = None
+    counts = {"captures": 0, "replays": 0, "eager": 0}
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None):
+    def loss_of(model, batch, generator):
+        canvas, queries, targets, weights = batch_views(
+            batch, cfg, generator=generator)
+        return cotr_loss(model, canvas, queries, targets,
+                         cycle_consis=cfg.cycle_consis,
+                         bidirectional=cfg.bidirectional, generator=generator,
+                         weights=weights, reduce=reduce)
+
+    def eager(state: TrainState, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None):
         with span("cotr.train.step"):
             model, optimizer = state.model, state.optimizer
             model.train()
             with span("cotr.train.forward"):
-                canvas, queries, targets, weights = batch_views(
-                    batch, cfg, generator=generator)
                 optimizer.zero_grad()
-                loss, metrics = cotr_loss(
-                    model, canvas, queries, targets,
-                    cycle_consis=cfg.cycle_consis,
-                    bidirectional=cfg.bidirectional, generator=generator,
-                    weights=weights, reduce=reduce)
+                loss, metrics = loss_of(model, batch, generator)
             with span("cotr.train.backward"):
                 loss.backward()
                 if mesh is not None:
                     reduce_gradients(model.parameters(), mesh)
             with span("cotr.train.optimizer"):
                 optimizer.step()
+            counts["eager"] += 1
             metrics = {k: v.detach() for k, v in metrics.items()}
             return TrainState(state.step + 1, model, optimizer), metrics
 
+    def capture(model, optimizer, batch, generator) -> _StepGraph:
+        """The step from the batch to the gradients as one graph, on a copy
+        of ``batch``; the gradients are None at capture, so the graph
+        writes them afresh."""
+        nonlocal pool
+        static = {k: v.clone() for k, v in batch.items()}
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        optimizer.zero_grad()
+        with torch.cuda.graph(graph, pool=pool):
+            loss, metrics = loss_of(model, static, generator)
+            loss.backward()
+        counts["captures"] += 1
+        return _StepGraph(
+            graph, static, {k: v.detach() for k, v in metrics.items()},
+            tuple((p, p.grad) for p in optimizer.params.values()))
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        model, optimizer = state.model, state.optimizer
+        key = None if mesh is not None else \
+            _graph_signature(model, optimizer, batch, generator)
+        if key is None:
+            return eager(state, batch, generator)
+        step_graph = graphs.get(key)
+        if step_graph is None:
+            if key not in warmed:
+                warmed[key] = (model, optimizer, generator)
+                return eager(state, batch, generator)
+        with span("cotr.train.step"):
+            model.train()
+            if step_graph is None:
+                step_graph = graphs[key] = capture(model, optimizer, batch,
+                                                   generator)
+            with span("cotr.train.replay"):
+                for k, v in step_graph.batch.items():
+                    v.copy_(batch[k])
+                for p, g in step_graph.grads:
+                    if p.grad is not g:
+                        p.grad = g
+                step_graph.graph.replay()
+            counts["replays"] += 1
+            with span("cotr.train.optimizer"):
+                optimizer.step()
+            metrics = {k: v.clone() for k, v in step_graph.metrics.items()}
+            return TrainState(state.step + 1, model, optimizer), metrics
+
+    train_step.counts = counts
+    train_step.eager = eager
     return train_step
 
 
