@@ -532,8 +532,6 @@ class FasterSparseEngine(SparseEngine):
         chunking of the device calls (inference/grouped.py). group_cap
         bounds the canvases per call; with max_load in the thousands it must
         drop so the (group_cap, max_load + 1, d) decoder buffers fit.
-    squads_impl: "native" (the C++ squad formation, built at first use) or
-        "numpy".
     mesh: a local mesh: the squad axis of every device call is split over
         its devices; group_bucket and group_cap must be multiples of its
         size.
@@ -545,7 +543,7 @@ class FasterSparseEngine(SparseEngine):
                  mesh=None, crop_dtype=None, safe_area: float = 0.5,
                  group_cap: int = 128, group_bucket: int = 8,
                  member_bucket: int = 64, member_ladder: bool = False,
-                 seed_stride: int = 1, squads_impl: str = "native"):
+                 seed_stride: int = 1):
         super().__init__(runner, batch_size, mode, task_bucket, image_bucket,
                          seed, crop_dtype=crop_dtype, mesh=mesh,
                          seed_stride=seed_stride)
@@ -553,16 +551,12 @@ class FasterSparseEngine(SparseEngine):
         # the canvas); at or below 0 grouping means nothing
         if not 0.0 < safe_area <= 1.0:
             raise ValueError(f"safe_area must be in (0, 1], got {safe_area}")
-        if squads_impl not in ("native", "numpy"):
-            raise ValueError(f"squads_impl must be 'native' or 'numpy', got "
-                             f"{squads_impl!r}")
         self.max_load = max_load
         self.safe_area = safe_area
         self.group_cap = group_cap
         self.group_bucket = group_bucket
         self.member_bucket = member_bucket
         self.member_ladder = member_ladder
-        self.squads_impl = squads_impl
         shards = self.refiner.shards
         if group_bucket % shards or group_cap % shards:
             raise ValueError(f"group_bucket={group_bucket} and group_cap="
@@ -581,8 +575,7 @@ class FasterSparseEngine(SparseEngine):
         return dict(max_load=self.max_load, safe_area=self.safe_area,
                     group_cap=self.group_cap, group_bucket=self.group_bucket,
                     member_bucket=self.member_bucket,
-                    member_ladder=self.member_ladder,
-                    squads_impl=self.squads_impl)
+                    member_ladder=self.member_ladder)
 
     def _refine_all(self, img_a, img_b, loc_from, loc_to, area_a, area_b,
                     zoom_ins, converge_iters):

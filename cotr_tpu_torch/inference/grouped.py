@@ -5,11 +5,13 @@ At each zoom level, tasks whose (loc_from, loc_to) both fall inside a pilot
 task's SAFE_AREA patch window reuse the pilot's crops, so one canvas encode
 serves up to ``max_load`` queries, and the encodes of all squads are batched.
 
-Per zoom level:
-  host   greedy squad formation over the task positions (numpy, or the C++
-         twin in csrc/squads.cpp);
+Per zoom level, for one image pair or many (``_zoom_level``):
+  host   greedy squad formation over each pair's tasks (csrc/squads.cpp),
+         the pairs' squad tables concatenated with a pair index a row;
   device crop G pilot patch pairs, encode the G canvases, decode the (G, M)
-         padded query matrix in one call;
+         padded query matrix in one call: ``GroupedStepper.dispatch`` on one
+         pair's images (``refine_grouped``) or ``dispatch_indexed`` on image
+         stacks (``refine_grouped_pairs``);
   host   map each member's prediction back through its squad's target patch.
 
 Everything on the host is numpy in float64, line by line what the JAX
@@ -240,24 +242,59 @@ class GroupedStepper:
             return None, None
         return sf, st
 
-    def _crop(self, img, boxes: np.ndarray, size):
+    def _crop(self, img, boxes: np.ndarray, size, sl):
         if size is None:
             return crop_and_resize_matmul(
-                img, self._upload(boxes, img.device), MAX_SIZE,
+                img, self._upload(boxes[sl], img.device), MAX_SIZE,
                 compute_dtype=self._crop_dtype)
-        return crop_and_resize_windowed(img, boxes, MAX_SIZE, size,
+        return crop_and_resize_windowed(img, boxes[sl], MAX_SIZE, size,
                                         compute_dtype=self._crop_dtype)
 
-    @torch.inference_mode()
     def dispatch(self, img_a, img_b, boxes_from, boxes_to, queries):
         """Enqueue one step WITHOUT synchronizing; returns the device
         tensor. Chunks within a zoom level are independent, so the engine
         dispatches them all and reads them afterwards: the host builds chunk
         k+1 while the device computes chunk k."""
+        return self._dispatch(img_a, img_b, boxes_from, boxes_to, queries,
+                              self._step_for, self._crop)
+
+    def _replicas(self, tensor) -> list:
+        if self.mesh is None:
+            return [tensor]
+        return replicate(tensor, self.mesh)
+
+    def dispatch_indexed(self, imgs_a, imgs_b, idx, boxes_from, boxes_to,
+                         queries):
+        """Multi-pair step without synchronizing: image STACKS (P, H, W, 3)
+        and one pair index per squad, so squads of different image pairs
+        share one canvas-encode call. Window sizes go up the ladder of
+        :func:`window_ladder`."""
+        idx = np.asarray(idx, np.int32)
+
+        def windows(boxes_from, boxes_to):
+            return tuple(
+                window_ladder(float(b[:, 2].max()) if len(b) else 1.0,
+                              min(int(stack.shape[1]), int(stack.shape[2])))
+                for b, stack in ((boxes_from, imgs_a), (boxes_to, imgs_b)))
+
+        def crop(stack, boxes, window, sl):
+            return crop_and_resize_window_indexed(
+                stack, boxes[sl], idx[sl], MAX_SIZE, window,
+                compute_dtype=self._crop_dtype)
+
+        return self._dispatch(imgs_a, imgs_b, boxes_from, boxes_to, queries,
+                              windows, crop)
+
+    @torch.inference_mode()
+    def _dispatch(self, img_a, img_b, boxes_from, boxes_to, queries,
+                  windows, crop):
+        """The body of both dispatches, which differ only in how a side is
+        cropped: ``windows(boxes_from, boxes_to)`` gives each side's window
+        and ``crop(image, boxes, window, share)`` one share's crops."""
         boxes_from = np.asarray(boxes_from, np.float32)
         boxes_to = np.asarray(boxes_to, np.float32)
         queries = np.asarray(queries, np.float32)
-        size_f, size_t = self._step_for(boxes_from, boxes_to)
+        win_f, win_t = windows(boxes_from, boxes_to)
         shares = self._shares(len(boxes_from))
         self.dispatch_count += 1
         self.canvas_count += len(boxes_from)
@@ -267,60 +304,13 @@ class GroupedStepper:
         for i, model, sl in shares:
             self.device_canvas_count[i] += sl.stop - sl.start
             parts.append(self._encode_decode(
-                model, self._crop(imgs_a[i], boxes_from[sl], size_f),
-                self._crop(imgs_b[i], boxes_to[sl], size_t), queries[sl]))
-        return self._gather(parts)
-
-    def _replicas(self, tensor) -> list:
-        if self.mesh is None:
-            return [tensor]
-        return replicate(tensor, self.mesh)
-
-    @torch.inference_mode()
-    def dispatch_indexed(self, imgs_a, imgs_b, idx, boxes_from, boxes_to,
-                         queries):
-        """Multi-pair step without synchronizing: image STACKS (P, H, W, 3)
-        and one pair index per squad, so squads of different image pairs
-        share one canvas-encode call. Window sizes go up the ladder of
-        :func:`window_ladder`."""
-        boxes_from = np.asarray(boxes_from, np.float32)
-        boxes_to = np.asarray(boxes_to, np.float32)
-        queries = np.asarray(queries, np.float32)
-        idx = np.asarray(idx, np.int32)
-        min_a = min(int(imgs_a.shape[1]), int(imgs_a.shape[2]))
-        min_b = min(int(imgs_b.shape[1]), int(imgs_b.shape[2]))
-        wf = window_ladder(
-            float(boxes_from[:, 2].max()) if len(boxes_from) else 1.0, min_a)
-        wt = window_ladder(
-            float(boxes_to[:, 2].max()) if len(boxes_to) else 1.0, min_b)
-        shares = self._shares(len(boxes_from))
-        self.dispatch_count += 1
-        self.canvas_count += len(boxes_from)
-        stacks_a = self._replicas(imgs_a)
-        stacks_b = self._replicas(imgs_b)
-        parts = []
-        for i, model, sl in shares:
-            self.device_canvas_count[i] += sl.stop - sl.start
-            crops_a = crop_and_resize_window_indexed(
-                stacks_a[i], boxes_from[sl], idx[sl], MAX_SIZE, wf,
-                compute_dtype=self._crop_dtype)
-            crops_b = crop_and_resize_window_indexed(
-                stacks_b[i], boxes_to[sl], idx[sl], MAX_SIZE, wt,
-                compute_dtype=self._crop_dtype)
-            parts.append(self._encode_decode(model, crops_a, crops_b,
-                                             queries[sl]))
+                model, crop(imgs_a[i], boxes_from, win_f, sl),
+                crop(imgs_b[i], boxes_to, win_t, sl), queries[sl]))
         return self._gather(parts)
 
     def __call__(self, img_a, img_b, boxes_from, boxes_to, queries):
         return self.dispatch(img_a, img_b, boxes_from, boxes_to,
                              queries).cpu().numpy()
-
-
-def _to_host(preds) -> np.ndarray:
-    """A dispatch's predictions as a host array; for a device tensor this is
-    where the host waits."""
-    return preds.cpu().numpy() if torch.is_tensor(preds) \
-        else np.asarray(preds)
 
 
 def _member_pad(m_max, max_load, member_bucket, member_ladder):
@@ -335,97 +325,136 @@ def _member_pad(m_max, max_load, member_bucket, member_ladder):
     return min(max(member_bucket, 1 << (m_max - 1).bit_length()), cap)
 
 
-def _grouped_zoom_step(stepper, img_a_dev, img_b_dev, loc_from, loc_to,
-                       active, scale_f, scale_t, hw_a, hw_b, rng, max_load,
-                       group_bucket, member_bucket, group_cap,
-                       safe_area=SAFE_AREA, member_ladder=False,
-                       squads_impl="native"):
-    """One squad formation and device dispatch over the ``active`` tasks.
+def _chunk_plan(counts, max_load, group_bucket, member_bucket, group_cap,
+                member_ladder, by_load):
+    """The device calls of one zoom level: (rows of the squad table, padded
+    canvases, padded members) for each. The rows are an index array, or a
+    slice in table order, whose tables are views.
 
-    Updates loc_to in place for every active task (each belongs to exactly
-    one squad). Returns the number of squads formed.
-    """
-    h_a, w_a = hw_a
-    h_b, w_b = hw_b
-    with span("cotr.squad.form"):
-        squad_of, pilots = form_squads(loc_from, loc_to, active, scale_f,
-                                       scale_t, (h_a, w_a), (h_b, w_b),
-                                       max_load, rng, safe_area=safe_area,
-                                       impl=squads_impl)
-        g = len(pilots)
-        if g == 0:
-            return 0
-        x0f_all, y0f_all, sf = patch_box_np(loc_from[pilots], scale_f, h_a,
-                                            w_a)
-        x0t_all, y0t_all, st = patch_box_np(loc_to[pilots], scale_t, h_b,
-                                            w_b)
-        ids_full, q_full, counts = _squad_tables(loc_from, squad_of, g,
-                                                 x0f_all, y0f_all, sf)
-    m_cap = ids_full.shape[1]
-
-    # dispatch every chunk first (device queue), read afterwards. Ladder
-    # mode takes squads in descending member count under a cell budget
-    # (g_chunk x m_pad <= CELL_CAP): one zoom level of a dense grid mixes
-    # 4000-member squads with 60-member squads, and one (group_cap,
-    # max_load+1) shape would exhaust memory or pad the small squads 60x.
-    order = np.argsort(-counts, kind="stable") if member_ladder \
-        else np.arange(g)
-    inflight = []
+    ``by_load`` takes squads in descending member count under a cell budget
+    (canvases x padded members <= CELL_CAP): one zoom level of a dense grid
+    mixes 4000-member squads with 60-member squads, and one (group_cap,
+    max_load + 1) shape would exhaust memory or pad the small squads 60x.
+    Otherwise chunks of ``group_cap`` squads go in table order, with two
+    sizes on the canvas axis. Both are the JAX package's plans: by load for
+    one pair with ``member_ladder``, in table order for many pairs."""
+    g = len(counts)
+    order = np.argsort(-counts, kind="stable") if by_load else None
     start = 0
     while start < g:
-        if member_ladder:
+        if by_load:
             m_pad = _member_pad(max(int(counts[order[start]]), 1),
                                 max_load, member_bucket, True)
             gc = min(group_cap, max(1, CELL_CAP // m_pad), g - start)
             g_pad = group_bucket if gc <= group_bucket \
                 else min(1 << (gc - 1).bit_length(), group_cap)
+            yield order[start:start + gc], g_pad, m_pad
         else:
             gc = min(group_cap, g - start)
-            m_max = max(int(counts[order[start:start + gc]].max()), 1)
-            # exactly two sizes per axis, as in the JAX package
-            m_pad = _member_pad(m_max, max_load, member_bucket, False)
+            m_max = max(int(counts[start:start + gc].max()), 1)
+            m_pad = _member_pad(m_max, max_load, member_bucket, member_ladder)
             g_pad = group_bucket if gc <= group_bucket else group_cap
-        sel = order[start:start + gc]
+            yield slice(start, start + gc), g_pad, m_pad
         start += gc
 
+
+def _pair_tables(pair, active, zoom, max_load, safe_area):
+    """One pair's squads over its ``active`` tasks at one zoom level:
+    (boxes_from, boxes_to, member ids, canvas-local queries, member counts,
+    target patch size), one row per squad."""
+    h_a, w_a = pair["hw_a"]
+    h_b, w_b = pair["hw_b"]
+    scale_f, scale_t = pair["s_from"] * zoom, pair["s_to"] * zoom
+    loc_from, loc_to = pair["loc_from"], pair["loc_to"]
+    squad_of, pilots = form_squads(loc_from, loc_to, active, scale_f, scale_t,
+                                   (h_a, w_a), (h_b, w_b), max_load,
+                                   pair["rng"], safe_area=safe_area)
+    g = len(pilots)
+    x0f, y0f, sf = patch_box_np(loc_from[pilots], scale_f, h_a, w_a)
+    x0t, y0t, st = patch_box_np(loc_to[pilots], scale_t, h_b, w_b)
+    ids, queries, counts = _squad_tables(loc_from, squad_of, g, x0f, y0f, sf)
+    boxes_f = np.stack([x0f, y0f, np.full(g, sf), np.full(g, sf)], axis=1)
+    boxes_t = np.stack([x0t, y0t, np.full(g, st), np.full(g, st)], axis=1)
+    return boxes_f, boxes_t, ids, queries, counts, st
+
+
+def _zoom_level(stepper, imgs_a, imgs_b, pairs, actives, zoom, indexed,
+                max_load, group_bucket, member_bucket, group_cap, safe_area,
+                member_ladder):
+    """One squad formation and device pass over the active tasks of every
+    pair. Writes each active task's ``loc_to`` in place (each belongs to
+    exactly one squad).
+
+    ``indexed`` picks the route: ``stepper.dispatch_indexed`` over image
+    stacks with a pair index per squad, or ``stepper.dispatch`` over one
+    pair's images."""
+    with span("cotr.squad.form"):
+        live = [pi for pi, active in enumerate(actives) if active.any()]
+        bf, bt, ids, q, counts, st = zip(*(
+            _pair_tables(pairs[pi], actives[pi], zoom, max_load, safe_area)
+            for pi in live))
+        squads_of = [len(b) for b in bf]
+        m_cap = max(i.shape[1] for i in ids)
+        table_f, table_t, counts_all = map(np.concatenate, (bf, bt, counts))
+        pair_of = np.repeat(np.asarray(live, np.int32), squads_of)
+        # the target patch size a prediction is scaled by: the one-pair
+        # route scales in float32 (as by a Python float), the multi-pair
+        # route in float64, each as in its JAX twin
+        size_t = np.repeat(np.asarray(
+            st, np.float64 if indexed else np.float32), squads_of)
+        ids_all = np.full((len(counts_all), m_cap), -1, int)
+        q_all = np.zeros((len(counts_all), m_cap, 2), np.float32)
+        for at, i, x in zip(np.cumsum([0] + squads_of), ids, q):
+            ids_all[at:at + len(i), :i.shape[1]] = i
+            q_all[at:at + len(i), :x.shape[1]] = x
+
+    # dispatch every chunk first (device queue), read afterwards
+    inflight = []
+    squads = np.arange(len(counts_all))
+    for sel, g_pad, m_pad in _chunk_plan(
+            counts_all, max_load, group_bucket, member_bucket, group_cap,
+            member_ladder, by_load=member_ladder and not indexed):
+        chunk = squads[sel]
+        gc = len(chunk)
         queries = np.zeros((g_pad, m_pad, 2), np.float32)
         member_ids = np.full((g_pad, m_pad), -1, int)
         mc = min(m_cap, m_pad)
-        queries[:gc, :mc] = q_full[sel, :mc]
-        member_ids[:gc, :mc] = ids_full[sel, :mc]
-
+        queries[:gc, :mc] = q_all[sel, :mc]
+        member_ids[:gc, :mc] = ids_all[sel, :mc]
         boxes_from = np.zeros((g_pad, 4), np.float32)
         boxes_to = np.zeros((g_pad, 4), np.float32)
-        boxes_from[:gc] = np.stack(
-            [x0f_all[sel], y0f_all[sel],
-             np.full(gc, sf), np.full(gc, sf)], axis=1)
-        boxes_to[:gc] = np.stack(
-            [x0t_all[sel], y0t_all[sel],
-             np.full(gc, st), np.full(gc, st)], axis=1)
-        # padding boxes keep the level's patch size (at 0, 0) so one window
-        # size covers the whole dispatch; their results are ignored
-        boxes_from[gc:, 2:] = sf
-        boxes_to[gc:, 2:] = st
+        idx = np.zeros(g_pad, np.int32)
+        boxes_from[:gc], boxes_to[:gc] = table_f[sel], table_t[sel]
+        idx[:gc] = pair_of[sel]
+        # padding boxes take the chunk's largest patch size at (0, 0) of
+        # pair 0, so one window covers the whole call; their results are
+        # ignored
+        boxes_from[gc:, 2:] = table_f[sel, 2].max()
+        boxes_to[gc:, 2:] = table_t[sel, 2].max()
+        if indexed:
+            preds = stepper.dispatch_indexed(imgs_a, imgs_b, idx, boxes_from,
+                                             boxes_to, queries)
+        else:
+            # fake steppers in tests may only implement __call__ (sync)
+            preds = getattr(stepper, "dispatch", stepper)(
+                imgs_a, imgs_b, boxes_from, boxes_to, queries)
+        inflight.append((preds, member_ids[:gc], chunk))
 
-        # fake steppers in tests may only implement __call__ (sync)
-        dispatch = getattr(stepper, "dispatch", stepper)
-        preds_dev = dispatch(img_a_dev, img_b_dev, boxes_from,
-                             boxes_to, queries)
-        x0t_rows = np.zeros(g_pad)
-        y0t_rows = np.zeros(g_pad)
-        x0t_rows[:gc] = x0t_all[sel]
-        y0t_rows[:gc] = y0t_all[sel]
-        inflight.append((preds_dev, member_ids, x0t_rows, y0t_rows))
-
-    for preds_dev, member_ids, x0t_rows, y0t_rows in inflight:
-        preds = _to_host(preds_dev)
+    for preds, member_ids, chunk in inflight:
+        rows, cols = np.nonzero(member_ids >= 0)
+        # a device tensor's copy to the host is where the host waits
+        preds = (preds.cpu().numpy() if torch.is_tensor(preds)
+                 else np.asarray(preds))[rows, cols]
+        squad, task = chunk[rows], member_ids[rows, cols]
         # back through each squad's target patch, vectorized
-        new_x = (preds[..., 0] - 0.5) * 2 * st + x0t_rows[:, None]
-        new_y = preds[..., 1] * st + y0t_rows[:, None]
-        sel = member_ids >= 0
-        loc_to[member_ids[sel], 0] = new_x[sel]
-        loc_to[member_ids[sel], 1] = new_y[sel]
-    return g
+        size = size_t[squad]
+        new_x = (preds[:, 0] - 0.5) * 2 * size + table_t[squad, 0]
+        new_y = preds[:, 1] * size + table_t[squad, 1]
+        owner = pair_of[squad]
+        for pi in np.unique(owner):
+            hit = owner == pi
+            pairs[pi]["loc_to"][task[hit], 0] = new_x[hit]
+            pairs[pi]["loc_to"][task[hit], 1] = new_y[hit]
 
 
 def _settle_final_zoom(loc_to, zoom_hist, active, it, iters) -> np.ndarray:
@@ -445,6 +474,37 @@ def _settle_final_zoom(loc_to, zoom_hist, active, it, iters) -> np.ndarray:
     return active & ~freeze
 
 
+def _refine(stepper, imgs_a, imgs_b, pairs, zoom_ins, converge_iters,
+            indexed, **grouping) -> list:
+    """Zoom-major squad refinement of every pair: one (len(zoom_ins), T_p,
+    2) loc_to history per pair, the final row converged."""
+    with span("cotr.squad.refine"):
+        pairs = [dict(p, loc_from=np.asarray(p["loc_from"], np.float64),
+                      loc_to=np.array(p["loc_to"], np.float64))
+                 for p in pairs]
+        histories: list = [[] for _ in pairs]
+        for zi, zoom in enumerate(zoom_ins):
+            is_final = zi == len(zoom_ins) - 1
+            iters = converge_iters if is_final else 1
+            actives = [np.ones(len(p["loc_from"]), bool) for p in pairs]
+            zoom_hists = [np.zeros((iters, len(p["loc_from"]), 2))
+                          for p in pairs]
+            for it in range(iters):
+                if not any(a.any() for a in actives):
+                    break
+                _zoom_level(stepper, imgs_a, imgs_b, pairs, actives, zoom,
+                            indexed, **grouping)
+                if not is_final:
+                    break
+                for pi, pair in enumerate(pairs):
+                    actives[pi] = _settle_final_zoom(
+                        pair["loc_to"], zoom_hists[pi], actives[pi], it,
+                        iters)
+            for history, pair in zip(histories, pairs):
+                history.append(pair["loc_to"].copy())
+        return [np.stack(h, axis=0) for h in histories]
+
+
 def refine_grouped(runner, stepper: GroupedStepper, img_a_dev, hw_a,
                    img_b_dev, hw_b,
                    loc_from: np.ndarray, loc_to0: np.ndarray,
@@ -452,8 +512,8 @@ def refine_grouped(runner, stepper: GroupedStepper, img_a_dev, hw_a,
                    rng: np.random.RandomState, converge_iters: int = 1,
                    max_load: int = 256, group_bucket: int = 8,
                    member_bucket: int = 64, group_cap: int = 128,
-                   safe_area: float = SAFE_AREA, member_ladder: bool = False,
-                   squads_impl: str = "native") -> np.ndarray:
+                   safe_area: float = SAFE_AREA,
+                   member_ladder: bool = False) -> np.ndarray:
     """Zoom-major grouped refinement over all tasks.
 
     Returns the per-zoom-level loc_to history (len(zoom_ins), T, 2): one row
@@ -468,36 +528,13 @@ def refine_grouped(runner, stepper: GroupedStepper, img_a_dev, hw_a,
     degenerates (every task its own squad) the encoder's per-canvas
     attention buffers would otherwise grow with the task count.
     """
-    with span("cotr.squad.refine"):
-        t = len(loc_from)
-        loc_to = loc_to0.astype(np.float64).copy()
-        history = []
-        n_levels = len(zoom_ins)
-
-        for zi, zoom in enumerate(zoom_ins):
-            scale_f, scale_t = s_from * zoom, s_to * zoom
-            is_final = zi == n_levels - 1
-            iters = converge_iters if is_final else 1
-            active = np.ones(t, bool)
-            zoom_hist = np.zeros((iters, t, 2))
-
-            for it in range(iters):
-                if not active.any():
-                    break
-                _grouped_zoom_step(stepper, img_a_dev, img_b_dev, loc_from,
-                                   loc_to, active, scale_f, scale_t, hw_a,
-                                   hw_b, rng, max_load, group_bucket,
-                                   member_bucket, group_cap,
-                                   safe_area=safe_area,
-                                   member_ladder=member_ladder,
-                                   squads_impl=squads_impl)
-                if not is_final:
-                    break
-                active = _settle_final_zoom(loc_to, zoom_hist, active, it,
-                                            iters)
-            history.append(loc_to.copy())
-
-        return np.stack(history, axis=0)
+    pair = dict(hw_a=hw_a, hw_b=hw_b, s_from=s_from, s_to=s_to,
+                loc_from=loc_from, loc_to=loc_to0, rng=rng)
+    return _refine(stepper, img_a_dev, img_b_dev, [pair], zoom_ins,
+                   converge_iters, indexed=False, max_load=max_load,
+                   group_bucket=group_bucket, member_bucket=member_bucket,
+                   group_cap=group_cap, safe_area=safe_area,
+                   member_ladder=member_ladder)[0]
 
 
 def refine_grouped_pairs(stepper: GroupedStepper, imgs_a_dev, imgs_b_dev,
@@ -505,8 +542,7 @@ def refine_grouped_pairs(stepper: GroupedStepper, imgs_a_dev, imgs_b_dev,
                          converge_iters: int = 1, max_load: int = 256,
                          group_bucket: int = 8, member_bucket: int = 64,
                          group_cap: int = 128, safe_area: float = SAFE_AREA,
-                         member_ladder: bool = False,
-                         squads_impl: str = "native") -> list:
+                         member_ladder: bool = False) -> list:
     """Zoom-major grouped refinement over MANY image pairs at once.
 
     Every pair's squads at one zoom level share device dispatches (a pair
@@ -527,140 +563,8 @@ def refine_grouped_pairs(stepper: GroupedStepper, imgs_a_dev, imgs_b_dev,
     Returns one (len(zoom_ins), T_p, 2) history per pair (refine_grouped
     semantics).
     """
-    with span("cotr.squad.refine"):
-        n_pairs = len(pairs)
-        n_levels = len(zoom_ins)
-        locs = [np.asarray(p["loc_to"], np.float64).copy() for p in pairs]
-        loc_froms = [np.asarray(p["loc_from"], np.float64) for p in pairs]
-        histories: list = [[] for _ in range(n_pairs)]
-
-        for zi, zoom in enumerate(zoom_ins):
-            is_final = zi == n_levels - 1
-            iters = converge_iters if is_final else 1
-            actives = [np.ones(len(lf), bool) for lf in loc_froms]
-            zoom_hists = [np.zeros((iters, len(lf), 2)) for lf in loc_froms]
-
-            for it in range(iters):
-                if not any(a.any() for a in actives):
-                    break
-                # ---- per-pair squad formation, concatenated dispatch tables
-                with span("cotr.squad.form"):
-                    per_pair = []
-                    m_cap = 1
-                    for pi, p in enumerate(pairs):
-                        active = actives[pi]
-                        if not active.any():
-                            continue
-                        h_a, w_a = p["hw_a"]
-                        h_b, w_b = p["hw_b"]
-                        scale_f = p["s_from"] * zoom
-                        scale_t = p["s_to"] * zoom
-                        squad_of, pilots = form_squads(
-                            loc_froms[pi], locs[pi], active, scale_f, scale_t,
-                            (h_a, w_a), (h_b, w_b), max_load, p["rng"],
-                            safe_area=safe_area, impl=squads_impl)
-                        g = len(pilots)
-                        if g == 0:
-                            continue
-                        x0f, y0f, sf = patch_box_np(loc_froms[pi][pilots],
-                                                    scale_f, h_a, w_a)
-                        x0t, y0t, st = patch_box_np(locs[pi][pilots], scale_t,
-                                                    h_b, w_b)
-                        ids_full, q_full, counts = _squad_tables(
-                            loc_froms[pi], squad_of, g, x0f, y0f, sf)
-                        m_cap = max(m_cap, ids_full.shape[1])
-                        boxes_f = np.stack([x0f, y0f, np.full(g, sf),
-                                            np.full(g, sf)], axis=1)
-                        boxes_t = np.stack([x0t, y0t, np.full(g, st),
-                                            np.full(g, st)], axis=1)
-                        per_pair.append((pi, boxes_f, boxes_t, ids_full,
-                                         q_full, counts, st))
-                    if not per_pair:
-                        for pi in range(n_pairs):
-                            zoom_hists[pi][it] = locs[pi]
-                        continue
-
-                    g_tot = sum(len(e[1]) for e in per_pair)
-                    boxes_f = np.zeros((g_tot, 4), np.float32)
-                    boxes_t = np.zeros((g_tot, 4), np.float32)
-                    idx = np.zeros(g_tot, np.int32)
-                    ids_all = np.full((g_tot, m_cap), -1, int)
-                    q_all = np.zeros((g_tot, m_cap, 2), np.float32)
-                    counts_all = np.zeros(g_tot, int)
-                    st_rows = np.zeros(g_tot)
-                    at = 0
-                    for pi, bf, bt, ids_full, q_full, counts, st in per_pair:
-                        g = len(bf)
-                        boxes_f[at:at + g] = bf
-                        boxes_t[at:at + g] = bt
-                        idx[at:at + g] = pi
-                        ids_all[at:at + g, :ids_full.shape[1]] = ids_full
-                        q_all[at:at + g, :q_full.shape[1]] = q_full
-                        counts_all[at:at + g] = counts
-                        st_rows[at:at + g] = st
-                        at += g
-
-                # ---- chunked dispatch (the padding of _grouped_zoom_step)
-                inflight = []
-                for start in range(0, g_tot, group_cap):
-                    end = min(start + group_cap, g_tot)
-                    gc = end - start
-                    m_max = max(int(counts_all[start:end].max()), 1)
-                    m_pad = _member_pad(m_max, max_load, member_bucket,
-                                        member_ladder)
-                    g_pad = group_bucket if gc <= group_bucket else group_cap
-
-                    queries = np.zeros((g_pad, m_pad, 2), np.float32)
-                    member_ids = np.full((g_pad, m_pad), -1, int)
-                    mc = min(m_cap, m_pad)
-                    queries[:gc, :mc] = q_all[start:end, :mc]
-                    member_ids[:gc, :mc] = ids_all[start:end, :mc]
-                    bf = np.zeros((g_pad, 4), np.float32)
-                    bt = np.zeros((g_pad, 4), np.float32)
-                    ix = np.zeros(g_pad, np.int32)
-                    bf[:gc] = boxes_f[start:end]
-                    bt[:gc] = boxes_t[start:end]
-                    ix[:gc] = idx[start:end]
-                    # padding boxes take the chunk's largest patch size at
-                    # (0, 0) of pair 0, so the ladder window covers them; their
-                    # results are ignored
-                    bf[gc:, 2:] = boxes_f[start:end, 2].max() if gc else 1.0
-                    bt[gc:, 2:] = boxes_t[start:end, 2].max() if gc else 1.0
-
-                    preds_dev = stepper.dispatch_indexed(
-                        imgs_a_dev, imgs_b_dev, ix, bf, bt, queries)
-                    x0t_r = np.zeros(g_pad)
-                    y0t_r = np.zeros(g_pad)
-                    st_r = np.ones(g_pad)
-                    pr = np.full(g_pad, -1, int)
-                    x0t_r[:gc] = boxes_t[start:end, 0]
-                    y0t_r[:gc] = boxes_t[start:end, 1]
-                    st_r[:gc] = st_rows[start:end]
-                    pr[:gc] = idx[start:end]
-                    inflight.append((preds_dev, member_ids, x0t_r, y0t_r, st_r,
-                                     pr))
-
-                for preds_dev, member_ids, x0t_r, y0t_r, st_r, pr in inflight:
-                    preds = _to_host(preds_dev)
-                    new_x = (preds[..., 0] - 0.5) * 2 * st_r[:, None] \
-                        + x0t_r[:, None]
-                    new_y = preds[..., 1] * st_r[:, None] + y0t_r[:, None]
-                    for pi in np.unique(pr):
-                        if pi < 0:
-                            continue
-                        rows = pr == pi
-                        sel = member_ids[rows] >= 0
-                        locs[pi][member_ids[rows][sel], 0] = new_x[rows][sel]
-                        locs[pi][member_ids[rows][sel], 1] = new_y[rows][sel]
-
-                if not is_final:
-                    break
-                # ---- per-pair final-zoom convergence (refine_grouped's rule)
-                for pi in range(n_pairs):
-                    actives[pi] = _settle_final_zoom(
-                        locs[pi], zoom_hists[pi], actives[pi], it, iters)
-
-            for pi in range(n_pairs):
-                histories[pi].append(locs[pi].copy())
-
-        return [np.stack(h, axis=0) for h in histories]
+    return _refine(stepper, imgs_a_dev, imgs_b_dev, pairs, zoom_ins,
+                   converge_iters, indexed=True, max_load=max_load,
+                   group_bucket=group_bucket, member_bucket=member_bucket,
+                   group_cap=group_cap, safe_area=safe_area,
+                   member_ladder=member_ladder)

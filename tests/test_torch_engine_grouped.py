@@ -225,16 +225,13 @@ def test_safe_area_out_of_range_raises(safe_area):
 
 
 def test_constructor_and_from_config():
-    with pytest.raises(ValueError):
-        FasterSparseEngine(TorchIdentityRunner(), squads_impl="gpu")
     cfg = InferenceConfig(mode="tile", max_load=32, batch_size=16)
     eng = FasterSparseEngine.from_config(TorchIdentityRunner(), cfg,
                                          safe_area=0.8)
     assert (eng.max_load, eng.mode, eng.batch_size, eng.safe_area) == \
         (32, "tile", 16, 0.8)
     assert (eng.group_cap, eng.group_bucket, eng.member_bucket,
-            eng.member_ladder, eng.squads_impl) == (128, 8, 64, False,
-                                                    "native")
+            eng.member_ladder) == (128, 8, 64, False)
 
 
 def test_stack_images_pads_to_the_bucket():

@@ -210,17 +210,106 @@ def test_refine_grouped_matches_jax(converge_iters, member_ladder):
     assert np.abs(got[-1] - loc_from).max() < 16.0
 
 
-def test_refine_grouped_numpy_and_native_squads_agree():
-    rng = np.random.RandomState(12)
+def _recorded(stepper, name):
+    """Wrap ``stepper.<name>`` to keep each call's host arguments after the
+    two images, as the benchmark's single-pair and multi-pair entries
+    record them."""
+    calls = []
+    orig = getattr(stepper, name)
+
+    def recorded(*args):
+        calls.append(tuple(np.array(a) for a in args[2:]))
+        return orig(*args)
+
+    setattr(stepper, name, recorded)
+    return calls
+
+
+def _assert_same_stream(got, want):
+    assert len(got) == len(want) > 0
+    for g_call, w_call in zip(got, want):
+        for g, w in zip(g_call, w_call):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("converge_iters", [1, 3])
+@pytest.mark.parametrize("member_ladder", [False, True])
+def test_refine_grouped_dispatch_stream_matches_jax(converge_iters,
+                                                    member_ladder):
+    """Every one-pair dispatch gets the JAX engine's boxes and queries, in
+    its order. A dense cluster of 300 tasks makes one squad of more than
+    256 members, so the ladder's load-sorted plan caps a chunk by
+    ``CELL_CAP`` (64 canvases of 512 members)."""
+    rng = np.random.RandomState(21)
     img = smooth_image(rng, (200, 300))
-    loc_from = np.stack([rng.uniform(20, 280, 80), rng.uniform(20, 180, 80)],
-                        axis=1)
+    scattered = np.stack([rng.uniform(20, 280, 120),
+                          rng.uniform(20, 180, 120)], axis=1)
+    cluster = np.array([150.0, 100.0]) + rng.normal(0, 2, (300, 2))
+    loc_from = np.concatenate([cluster, scattered])
+    loc_to = loc_from + rng.normal(0, 3, loc_from.shape)
+    kw = dict(converge_iters=converge_iters, max_load=600, group_bucket=4,
+              member_bucket=8, group_cap=128, member_ladder=member_ladder)
+    zooms = [0.5, 0.125]
+
+    trunner = TorchIdentityRunner()
+    stepper = grouped.GroupedStepper(trunner)
+    got = _recorded(stepper, "dispatch")
     dev = torch.from_numpy(img).float() / 255.0
-    out = {}
-    for impl in ("native", "numpy"):
-        runner = TorchIdentityRunner()
-        out[impl] = grouped.refine_grouped(
-            runner, grouped.GroupedStepper(runner), dev, img.shape[:2], dev,
-            img.shape[:2], loc_from, loc_from + 2.0, 1.0, 1.0, [0.5, 0.25],
-            np.random.RandomState(1), max_load=8, squads_impl=impl)
-    np.testing.assert_array_equal(out["native"], out["numpy"])
+    grouped.refine_grouped(
+        trunner, stepper, dev, img.shape[:2], dev, img.shape[:2], loc_from,
+        loc_to, 1.0, 1.0, zooms, np.random.RandomState(5), **kw)
+
+    jrunner = JaxIdentityRunner()
+    jstepper = jgrouped.GroupedStepper(jrunner)
+    want = _recorded(jstepper, "dispatch")
+    jdev = jnp.asarray(img).astype(jnp.float32) / 255.0
+    jgrouped.refine_grouped(
+        jrunner, jstepper, jdev, img.shape[:2], jdev, img.shape[:2],
+        loc_from, loc_to, 1.0, 1.0, zooms, np.random.RandomState(5), **kw)
+
+    _assert_same_stream(got, want)
+    members = max(q.shape[1] for _, _, q in got)
+    assert members == (512 if member_ladder else 601)
+    if member_ladder:
+        assert any(q.shape[:2] == (grouped.CELL_CAP // 512, 512)
+                   for _, _, q in got)
+
+
+@pytest.mark.parametrize("member_ladder", [False, True])
+def test_refine_grouped_pairs_dispatch_stream_matches_jax(member_ladder):
+    """Every multi-pair dispatch gets the JAX engine's pair indices, boxes
+    and queries, in its order, for three pairs of different sizes padded
+    into one stack."""
+    rng = np.random.RandomState(22)
+    shapes = [(200, 300), (256, 180), (150, 240)]
+    stack = np.zeros((3, 256, 512, 3), np.uint8)
+    pairs = []
+    for i, (h, w) in enumerate(shapes):
+        stack[i, :h, :w] = smooth_image(rng, (h, w))
+        t = 40 + 30 * i
+        lf = np.stack([rng.uniform(10, w - 10, t), rng.uniform(10, h - 10, t)],
+                      axis=1)
+        pairs.append(dict(hw_a=(h, w), hw_b=(h, w), s_from=1.0,
+                          s_to=0.9 + 0.1 * i, loc_from=lf,
+                          loc_to=lf + rng.normal(0, 3, (t, 2)), seed=30 + i))
+    kw = dict(converge_iters=3, max_load=16, group_bucket=4, member_bucket=8,
+              group_cap=16, member_ladder=member_ladder)
+    zooms = [1.0, 0.25, 0.125]
+
+    def states():
+        return [dict(p, rng=np.random.RandomState(p["seed"])) for p in pairs]
+
+    trunner = TorchIdentityRunner()
+    stepper = grouped.GroupedStepper(trunner)
+    got = _recorded(stepper, "dispatch_indexed")
+    dev = torch.from_numpy(stack).float() / 255.0
+    grouped.refine_grouped_pairs(stepper, dev, dev, states(), zooms, **kw)
+
+    jstepper = jgrouped.GroupedStepper(JaxIdentityRunner())
+    want = _recorded(jstepper, "dispatch_indexed")
+    jdev = jnp.asarray(stack).astype(jnp.float32) / 255.0
+    jgrouped.refine_grouped_pairs(jstepper, jdev, jdev, states(), zooms, **kw)
+
+    _assert_same_stream(got, want)
+    assert {int(i) for idx, *_ in got for i in idx} == {0, 1, 2}

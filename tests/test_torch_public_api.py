@@ -181,10 +181,7 @@ EXTRAS = {
     "data.device_synth.synth_supervision_batch": ("scores", "generator"),
     "data.loader.PrefetchLoader": ("shard",),
     "inference.dense.warp_by_flow": ("device",),
-    "inference.engine.FasterSparseEngine": ("squads_impl",),
     "inference.grouped.form_squads": ("impl",),
-    "inference.grouped.refine_grouped": ("squads_impl",),
-    "inference.grouped.refine_grouped_pairs": ("squads_impl",),
     "ops.geometry_cv.find_fundamental_ransac": ("device",),
     "parallel.mesh.make_mesh": ("devices",),
     "parallel.mesh.replicate": ("home",),
